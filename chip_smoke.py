@@ -5,10 +5,11 @@
 
 Builds the CUDA kernels from libaec_tpu_torch/csrc with nvcc, holds each
 kernel bit-exactly against its plain PyTorch version on the card at the
-chunk shape the main path launches, then drives the port's main path
-(libaec_tpu_torch.encode_buffer) over two 256 MiB buffers and holds the
-streams against the native encoder and a native decode round trip.
-Imports no JAX.  Exits non-zero, and prints no result line, on any
+chunk shape the main path launches, then drives the port's two main
+paths: libaec_tpu_torch.encode_buffer over two 256 MiB buffers, held
+against the native encoder and a native decode round trip, and
+libaec_tpu_torch.decode_buffer_status over the two streams it made, held
+against the input and the native decoder.  Imports no JAX.  Exits non-zero, and prints no result line, on any
 failure or when no CUDA device is present.
 
 The last two lines of standard output are JSON: the kernels' summary,
@@ -37,13 +38,13 @@ def timed(fn, reps, warmup=3):
     """fn()'s result and its median CUDA-event milliseconds over reps
     runs, after `warmup` untimed runs."""
     for _ in range(warmup):
-        out = fn()
+        fn()
     pairs = []
     for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        out = fn()
         end.record()
         pairs.append((start, end))
     torch.cuda.synchronize()
@@ -121,6 +122,100 @@ def check_merge_kernel(cfg, win, block_bits, device):
     return worst, statistics.median(times), statistics.median(plain_times)
 
 
+def walk_data(cfg, n_rsi, seed, step):
+    """n_rsi RSIs of 16-bit samples, each RSI a random walk from
+    mid-range with steps uniform in [-step, step] (step 0: one sample in
+    16 moves by one).  At the bench config steps 0, 2 and 8 make the
+    decode path bucket the windows to 6, 10 and 18 words."""
+    import gen
+
+    rng = np.random.default_rng(seed)
+    shape = (n_rsi, cfg.samples_per_rsi)
+    if step:
+        steps = rng.integers(-step, step + 1, shape)
+    else:
+        steps = (rng.random(shape) < 1 / 16) * rng.choice([-1, 1], shape)
+    vals = (32768 + np.cumsum(steps, axis=1)).clip(0, 65535)
+    return gen.pack_samples(vals.astype(np.uint32).ravel(), 16, cfg.flags)
+
+
+def scanned_chunk(cfg, raw):
+    """Whole RSIs of raw bytes, encoded by the native encoder and walked
+    by the decode path's records-only scan: (stream, records, the decode
+    path's bucket width)."""
+    from libaec_tpu import native
+    from libaec_tpu_torch.ops import bitunpack
+
+    n_rsi = len(raw) // cfg.rsi_len_bytes
+    status, comp = native.encode(raw, cfg)
+    if status != 0:
+        raise AssertionError(f"native encoder failed with status {status}")
+    recs, cnt, tail_bit = native.scan_blocks(
+        comp, n_rsi, bitunpack.max_fs_bits(cfg), cfg, wf=0)
+    if cnt != n_rsi:
+        raise AssertionError(f"scan stopped after {cnt} of {n_rsi} RSIs")
+    return comp, dict(recs), bitunpack.bucket_wf(cfg, recs, tail_bit)
+
+
+def check_decode_kernel(name, cfg, raw, device):
+    """Kernel 3 against its plain version on one chunk of whole RSIs, at
+    the chunk's own bucket width and at every wider width the decode path
+    can choose (WF_BUCKETS and the worst case).  Returns [(wf,
+    max_abs_err, ms, plain_ms)], the deltas at the chunk's own width and
+    the stream."""
+    from libaec_tpu import native
+    from libaec_tpu.decode import WF_BUCKETS, scan_record_arrays
+    from libaec_tpu_torch.kernels import decode_cuda
+    from libaec_tpu_torch.ops import bitunpack
+    from libaec_tpu_torch.ops.u32 import u32_to_bits
+
+    comp, recs, bucket = scanned_chunk(cfg, raw)
+    n_rsi = len(raw) // cfg.rsi_len_bytes
+    wf_max = bitunpack.window_words(cfg)
+    rows, deltas = [], None
+    for wf in sorted({w for w in (*WF_BUCKETS, wf_max)
+                      if bucket <= w <= wf_max}):
+        recs["win"] = native.fill_windows(comp, recs["fs_off"],
+                                          recs["meta"], wf)
+        args = [u32_to_bits(a).to(device) for a in scan_record_arrays(recs)]
+        got, ms = timed(lambda: decode_cuda.decode_blocks(cfg, *args), 20)
+        want, plain_ms = timed(
+            lambda: decode_cuda.decode_blocks_plain(cfg, *args), 3, warmup=1)
+        err = max_abs_err(got, want)
+        print(f"kernel decode_blocks [{name}] n_rsi={n_rsi} NB={got.shape[0]}"
+              f" Wf={wf} bucket={bucket} max_abs_err={err} ms={ms:.4f} "
+              f"plain_ms={plain_ms:.4f}")
+        if err:
+            raise AssertionError(f"decode kernel differs from plain ({name}, "
+                                 f"Wf {wf})")
+        rows.append((wf, err, ms, plain_ms))
+        if deltas is None:
+            deltas = got
+    return rows, deltas, comp
+
+
+def check_unpredict_kernel(name, cfg, raw, deltas, comp, device):
+    """Kernel 4 against its plain version on one chunk's deltas (the
+    plain version is a loop over the RSI's samples: one timed run); the
+    kernel's bytes must also be native.decode's for the chunk."""
+    from libaec_tpu import native
+    from libaec_tpu_torch.kernels import unpredict_cuda
+
+    d = deltas.view(-1, cfg.samples_per_rsi)
+    got, ms = timed(lambda: unpredict_cuda.unpredict_swizzle(cfg, d), 20)
+    want, plain_ms = timed(
+        lambda: unpredict_cuda.unpredict_swizzle_plain(cfg, d), 1, warmup=0)
+    err = max_abs_err(got, want)
+    status, ref = native.decode(comp, len(raw), cfg)
+    native_ok = status == 0 and got.cpu().numpy().tobytes() == ref
+    print(f"kernel unpredict_swizzle [{name}] n_rsi={d.shape[0]} "
+          f"S={d.shape[1]} max_abs_err={err} identical_to_native={native_ok} "
+          f"ms={ms:.4f} plain_ms={plain_ms:.4f}")
+    if err or not native_ok:
+        raise AssertionError(f"unpredict kernel differs ({name})")
+    return err, ms, plain_ms
+
+
 def run_slice(mib, device, seed):
     """The main path on `mib` MiB buffers of 16-bit MSB samples."""
     import gen
@@ -171,23 +266,85 @@ def run_slice(mib, device, seed):
             raise AssertionError(f"main path never launched {name}")
     print(f"slice launches {json.dumps(launches)}")
     for kind, data, _, _ in results:
-        host_breakdown(kind, data, cfg, device)
-    profile_slice(results[0][1], cfg, device)
+        with encode_timers() as spent:
+            host_breakdown(kind, lambda: lt.encode_buffer(
+                data, cfg, device=device), spent)
+    profile_call("encode_buffer", lambda: lt.encode_buffer(
+        results[0][1], cfg, device=device))
+    return launches, results
+
+
+def run_decode_slice(results, cfg, device):
+    """The decode main path on the streams run_slice made: identical to
+    the input and to native.decode; a truncated stream and an out_size
+    short of a whole sample give native.decode's (status, bytes)."""
+    import libaec_tpu_torch as lt
+    from libaec_tpu import native
+    from libaec_tpu_torch.kernels import decode_cuda, unpredict_cuda
+
+    def decode(comp, out_size):
+        return lt.decode_buffer_status(comp, cfg, out_size, device=device)
+
+    # warm-up: pinned slots, the allocator's pools, the worker threads
+    decode(results[0][2], 64 << 20)
+
+    decode_cuda.launches = unpredict_cuda.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    runs = []
+    for kind, data, comp, _ in results:
+        body = data[: len(data) // 2 * 2]
+        t0 = time.perf_counter()
+        status, out = decode(comp, len(body))
+        runs.append((kind, body, comp, status, out,
+                     time.perf_counter() - t0))
+    launches = {"decode_blocks": decode_cuda.launches,
+                "unpredict_swizzle": unpredict_cuda.launches}
+    peak = torch.cuda.max_memory_allocated(device)
+
+    for kind, body, comp, status, out, secs in runs:
+        if status != 0 or out != body:
+            raise AssertionError(f"{kind}: decode differs from the input "
+                                 f"(status {status})")
+        t0 = time.perf_counter()
+        want = native.decode(comp, len(body), cfg)
+        native_secs = time.perf_counter() - t0
+        if want != (status, out):
+            raise AssertionError(f"{kind}: decode differs from native")
+        print(f"slice decode_buffer_status [{kind}] stream_bytes={len(comp)}"
+              f" bytes={len(body)} seconds={secs:.4f} "
+              f"MiB/s={len(body) / secs / 2**20:.2f} "
+              f"native_MiB/s={len(body) / native_secs / 2**20:.2f} "
+              f"peak_device_MiB={peak / 2**20:.1f} identical_to_input=True "
+              f"identical_to_native=True")
+    for name, count in launches.items():
+        if count <= 0:
+            raise AssertionError(f"main path never launched {name}")
+    print(f"slice launches {json.dumps(launches)}")
+
+    _, body, comp, _, _, _ = runs[0]
+    for label, stream, out_size in (
+            ("truncated mid-RSI", comp[: len(comp) // 2 + 7], len(body)),
+            ("out_size not whole samples", comp, len(body) - 1)):
+        got = decode(stream, out_size)
+        want = native.decode(stream, out_size, cfg)
+        if got != want:
+            raise AssertionError(f"{label}: status {got[0]} and "
+                                 f"{len(got[1])} bytes, native {want[0]} "
+                                 f"and {len(want[1])}")
+        print(f"slice decode_buffer_status [{label}] status={got[0]} "
+              f"bytes={len(got[1])} identical_to_native=True")
+
+    for kind, body, comp, _, _, _ in runs:
+        with decode_timers() as spent:
+            host_breakdown(f"decode {kind}",
+                           lambda: decode(comp, len(body)), spent)
+    profile_call("decode_buffer_status",
+                 lambda: decode(runs[0][2], len(runs[0][1])))
     return launches
 
 
-@contextmanager
-def host_timers():
-    """Seconds the main path spends in each host step, summed per step.
-
-    Wraps the names encode_buffer looks up in libaec_tpu_torch.encode and
-    puts them back on exit.  Steps tagged (main) run on the calling
-    thread, (fetch) on the FIFO fetch thread, so the two sums overlap."""
-    from libaec_tpu_torch import encode as mod
-
-    spent = defaultdict(float)
-    lock = threading.Lock()
-
+def _step_timer(spent, lock):
     def wrap(step, fn):
         def timed_step(*args, **kwargs):
             t0 = time.perf_counter()
@@ -197,6 +354,20 @@ def host_timers():
                 with lock:
                     spent[step] += time.perf_counter() - t0
         return timed_step
+    return wrap
+
+
+@contextmanager
+def encode_timers():
+    """Seconds the encode path spends in each host step, summed per step.
+
+    Wraps the names encode_buffer looks up in libaec_tpu_torch.encode and
+    puts them back on exit.  Steps tagged (main) run on the calling
+    thread, (fetch) on the FIFO fetch thread, so the two sums overlap."""
+    from libaec_tpu_torch import encode as mod
+
+    spent = defaultdict(float)
+    wrap = _step_timer(spent, threading.Lock())
 
     class Stager(mod._Stager):
         stage = wrap("stage_main", mod._Stager.stage)
@@ -220,29 +391,48 @@ def host_timers():
             setattr(mod, name, value)
 
 
-def host_breakdown(kind, data, cfg, device):
-    """One main-path call with a wall timer around each host step."""
-    import libaec_tpu_torch as lt
+@contextmanager
+def decode_timers():
+    """Seconds the decode path spends in each host step, summed per step,
+    as encode_timers: (main) the calling thread, (fill) the fill worker,
+    (fetch) the FIFO fetch thread."""
+    from libaec_tpu_torch import decode as mod
 
-    with host_timers() as spent:
-        t0 = time.perf_counter()
-        lt.encode_buffer(data, cfg, device=device)
-        wall_ms = (time.perf_counter() - t0) * 1e3
+    spent = defaultdict(float)
+    wrap = _step_timer(spent, threading.Lock())
+    steps = {"scan_chunk": "scan_main", "fill_chunk": "fill_fill",
+             "stage_chunk": "h2d_main", "decode_chunk": "dispatch_main",
+             "fetch_chunk": "d2h_fetch", "finish": "tail_finish_main"}
+    saved = {name: getattr(mod, name) for name in steps}
+    for name, step in steps.items():
+        setattr(mod, name, wrap(step, saved[name]))
+    try:
+        yield spent
+    finally:
+        for name, value in saved.items():
+            setattr(mod, name, value)
+
+
+def host_breakdown(label, fn, spent):
+    """One main-path call, fn(), inside a timers context whose sums are
+    `spent`."""
+    t0 = time.perf_counter()
+    fn()
+    wall_ms = (time.perf_counter() - t0) * 1e3
     steps = " ".join(f"{k}_ms={v * 1e3:.3f}" for k, v in sorted(spent.items()))
-    print(f"host [{kind}] wall_ms={wall_ms:.3f} {steps}")
+    print(f"host [{label}] wall_ms={wall_ms:.3f} {steps}")
 
 
-def profile_slice(data, cfg, device):
-    """Device time of one main-path call under torch.profiler: the union
-    of the intervals of kernels, copies and memsets over all streams, and
-    the device's idle share of the call's wall time."""
-    import libaec_tpu_torch as lt
+def profile_call(label, fn):
+    """Device time of one main-path call, fn(), under torch.profiler: the
+    union of the intervals of kernels, copies and memsets over all
+    streams, and the device's idle share of the call's wall time."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        lt.encode_buffer(data, cfg, device=device)
+        fn()
         wall_ms = (time.perf_counter() - t0) * 1e3
     with tempfile.TemporaryDirectory() as tmp:
         path = Path(tmp) / "trace.json"
@@ -252,7 +442,8 @@ def profile_slice(data, cfg, device):
                    if e.get("ph") == "X" and e.get("cat") in
                    ("kernel", "gpu_memcpy", "gpu_memset"))
     if not spans:
-        print(f"profile wall_ms={wall_ms:.3f} device time: not measured")
+        print(f"profile [{label}] wall_ms={wall_ms:.3f} "
+              f"device time: not measured")
         return
     by_name = defaultdict(lambda: [0.0, 0])
     busy_us, cur_start, cur_end = 0.0, spans[0][0], spans[0][0]
@@ -266,7 +457,8 @@ def profile_slice(data, cfg, device):
     busy_ms = (busy_us + cur_end - cur_start) / 1e3
     top = "; ".join(f"{name[:48]} x{n} {us / 1e3:.3f}ms" for name, (us, n)
                     in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8])
-    print(f"profile wall_ms={wall_ms:.3f} device_busy_ms={busy_ms:.3f} "
+    print(f"profile [{label}] wall_ms={wall_ms:.3f} "
+          f"device_busy_ms={busy_ms:.3f} "
           f"idle_share={1 - busy_ms / wall_ms:.4f} | {top}")
 
 
@@ -324,8 +516,51 @@ def main():
     err2, ms2, plain2 = check_merge_kernel(bench_cfg, bench[0], bench[1],
                                            device)
 
-    # 5. the main path
-    launches = run_slice(SLICE_MIB, device, seed=20261016)
+    # 5. the encode main path
+    launches, streams = run_slice(SLICE_MIB, device, seed=20261016)
+
+    # 6. kernel 3 against its plain version, each config at the chunk the
+    #    decode path gives it (8 Mi samples: 512 RSIs, NB 131072 at the
+    #    bench config), at every window width that path can choose
+    def decode_chunk_rsis(cfg):
+        return max(1, (8 << 20) // cfg.samples_per_rsi)
+
+    n_bench = decode_chunk_rsis(bench_cfg)
+    dec_checks = [  # (name, config, whole RSIs of raw bytes)
+        ("bench walk flat", bench_cfg, walk_data(bench_cfg, n_bench, 60, 0)),
+        ("bench walk 2", bench_cfg, walk_data(bench_cfg, n_bench, 62, 2)),
+        ("bench walk 8", bench_cfg, walk_data(bench_cfg, n_bench, 68, 8)),
+        ("bench all kinds", bench_cfg,
+         chunk_data(bench_cfg, n_bench, 16)),          # the worst case, 34
+    ] + [(name, cfg, chunk_data(cfg, decode_chunk_rsis(cfg),
+                                cfg.bits_per_sample)) for name, cfg in (
+        ("8-bit no-pp bs16 rsi128", Config(8, 16, 128, 0)),
+        ("13-bit signed MSB bs32 rsi64", Config(13, 32, 64, sgn | pp | msb)),
+        ("32-bit signed bs64 rsi256", Config(32, 64, 256, sgn | pp)),
+        ("bench no-pp", Config(16, 64, 256, msb)),
+    )]
+    err3, bench3, chunks = 0, [], {}
+    for name, cfg, raw in dec_checks:
+        rows, deltas, comp = check_decode_kernel(name, cfg, raw, device)
+        err3 = max(err3, *(r[1] for r in rows))
+        if cfg == bench_cfg:
+            bench3 += rows
+        chunks[name] = (cfg, raw, deltas, comp)
+    ms3 = statistics.median(r[2] for r in bench3)
+    plain3 = statistics.median(r[3] for r in bench3)
+
+    # 7. kernel 4 against its plain version on those chunks' deltas
+    err4 = 0
+    for name in ("bench walk 2", "8-bit no-pp bs16 rsi128",
+                 "13-bit signed MSB bs32 rsi64", "32-bit signed bs64 rsi256",
+                 "bench no-pp"):
+        e, ms, plain = check_unpredict_kernel(name, *chunks[name], device)
+        err4 = max(err4, e)
+        if name == "bench walk 2":
+            ms4, plain4 = ms, plain
+
+    # 8. the decode main path on the streams of phase 5
+    dec_launches = run_decode_slice(streams, bench_cfg, device)
     if "jax" in sys.modules:
         raise AssertionError("jax was imported")
 
@@ -340,6 +575,16 @@ def main():
          "replaces": "libaec_tpu/kernels/merge_pallas.py:77",
          "launches": launches["merge_windows"], "max_abs_err": err2,
          "ms": ms2, "plain_ms": plain2},
+        {"name": "decode_blocks", "route": "cuda",
+         "source": "libaec_tpu_torch/csrc/decode.cu",
+         "replaces": "libaec_tpu/kernels/decode_pallas.py:53",
+         "launches": dec_launches["decode_blocks"], "max_abs_err": err3,
+         "ms": ms3, "plain_ms": plain3},
+        {"name": "unpredict_swizzle", "route": "cuda",
+         "source": "libaec_tpu_torch/csrc/unpredict.cu",
+         "replaces": "libaec_tpu/kernels/unpredict_pallas.py:83",
+         "launches": dec_launches["unpredict_swizzle"], "max_abs_err": err4,
+         "ms": ms4, "plain_ms": plain4},
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -2,13 +2,17 @@
 
 The port of libaec_tpu (JAX/Pallas on a TPU) to an NVIDIA Hopper GPU.
 This package imports torch and never jax.  It reuses the JAX package's
-host-only code (Config, constants, the native C++ runtime, the numpy
-tail encoder) by import.  Encode runs through two hand-written CUDA
-kernels (kernels/encode_cuda.py, kernels/merge_cuda.py), built with nvcc
-at first use; every kernel has a plain PyTorch version beside it.
+host-only code (Config, constants, the native C++ runtime with its
+structural scan and serial decoder, the numpy tail encoder) by import.
+Four hand-written CUDA kernels, built with nvcc at first use, carry the
+device paths: encode through kernels/encode_cuda.py and merge_cuda.py,
+decode through kernels/decode_cuda.py (payload parse) and
+unpredict_cuda.py (inverse predictor and byte layout).  Every kernel has
+a plain PyTorch version beside it.
 
-The codec has no weights: both packages take the same Config object and
-the same (k, bit0) carries, so nothing needs converting between them.
+The codec has no weights: both packages take the same Config object, the
+same (k, bit0) carries and the same scan records (scan_record_arrays), so
+nothing needs converting between them.
 """
 from libaec_tpu.config import Config  # noqa: F401
 from libaec_tpu.constants import (  # noqa: F401
@@ -33,4 +37,5 @@ from libaec_tpu.constants import (  # noqa: F401
     AecStreamError,
 )
 
+from .decode import decode_buffer, decode_buffer_status  # noqa: F401
 from .encode import encode_buffer, encode_buffer_status  # noqa: F401

@@ -1,0 +1,151 @@
+// Inverse predictor + byte layout: mapped deltas -> the stream's bytes.
+//
+// Replaces unpredict_swizzle_tile_kernel (libaec_tpu/kernels/
+// unpredict_pallas.py:83, entry unpredict_swizzle_rsis_pallas :205).  It
+// computes the same output: for deltas u32 [n_rsi, S], the bytes of each
+// RSI's samples in put_* order (decode.c:144-189), MSB or LSB first,
+// uint8 [n_rsi, S * bsz] for 1-, 2- and 4-byte samples.
+//
+// The inverse unit-delay predictor (decode.c:67-141) is serial within an
+// RSI and independent across RSIs (each starts from its reference
+// sample).  The TPU kernel puts RSIs on lanes and walks sample slabs in
+// VMEM; here one thread owns one RSI and walks its S samples.  Rows are
+// S * 4 bytes apart, so direct per-thread loads and stores would not
+// coalesce: a warp stages a [32 RSI x SL sample] slab in shared memory
+// (row loads with lanes on consecutive samples, issued as asynchronous
+// copies so that they are all in flight together), each lane runs the
+// recurrence over its row and writes its bytes into a shared output
+// slab, and the warp stores that slab row by row (32-bit words when the
+// rows are word-aligned, bytes otherwise).  Rows are padded by one word,
+// so neither the row-wise nor the column-wise accesses conflict on banks.
+//
+// Paths, as unpredict_pallas.py:103-154: preprocessing off is a pure
+// byte layout; otherwise the first sample of an RSI is its reference
+// (sign-extended for signed data) and the rest follow the unsigned path,
+// or the signed one when xmin != 0.  The signed path's int32 arithmetic
+// wraps in JAX; signed overflow is undefined in C++, so it runs on
+// uint32_t bit patterns, which wrap the same way.
+//
+// Bound on this card: one warp per SM walks S / SL slabs, and each slab
+// costs 32 row loops of loads and of stores besides its SL serial steps
+// (the layout-only path, with no serial chain, takes nearly as long).  A
+// 512-RSI chunk gives 512 threads (16 warps) in all, so the card is
+// mostly idle.
+#include <cstdint>
+#include <cuda_pipeline.h>
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int SL = 128;  // samples per slab
+
+struct Params {
+    long long n_rsi;
+    int S, msb, pp, signed_path, sign_ext, words;
+    uint32_t xmax, med, sign_bit;
+};
+
+__device__ __forceinline__ uint32_t half_of(uint32_t d) {
+    return (d >> 1) + (d & 1);
+}
+
+__device__ __forceinline__ uint32_t zig_of(uint32_t d) {
+    return (d >> 1) ^ ~((d & 1) - 1);
+}
+
+__device__ __forceinline__ uint32_t step_unsigned(uint32_t last, uint32_t d,
+                                                  const Params& p) {
+    const uint32_t mask = (last & p.med) ? p.xmax : 0u;
+    return half_of(d) <= (mask ^ last) ? last + zig_of(d) : mask ^ d;
+}
+
+// int32 step of unpredict_pallas.py:119-127 on bit patterns (xmax is
+// sxmax's bit pattern)
+__device__ __forceinline__ uint32_t step_signed(uint32_t last, uint32_t d,
+                                                const Params& p) {
+    const bool neg = (int32_t)last < 0;
+    const uint32_t lim = neg ? p.xmax + last + 1u : p.xmax - last;
+    const uint32_t esc = neg ? d - p.xmax - 1u : p.xmax - d;
+    return half_of(d) <= lim ? last + zig_of(d) : esc;
+}
+
+template <int BSZ>
+__global__ void unpredict_swizzle_kernel(const uint32_t* __restrict__ d,
+                                         uint8_t* __restrict__ out,
+                                         Params p) {
+    __shared__ uint32_t tin[32][SL + 1];
+    __shared__ uint32_t tout[32][SL + 1];
+    const int lane = threadIdx.x;
+    const long long r0 = (long long)blockIdx.x * 32;
+    const int rows = (int)(p.n_rsi - r0 < 32 ? p.n_rsi - r0 : 32);
+    const long long S = p.S, row_bytes = S * BSZ;
+    uint8_t* mine = reinterpret_cast<uint8_t*>(tout[lane]);
+    uint32_t last = 0;
+    for (long long s0 = 0; s0 < S; s0 += SL) {
+        const int len = (int)(S - s0 < SL ? S - s0 : SL);
+        // asynchronous copies: the slab's loads are all in flight at once
+        for (int r = 0; r < rows; r++) {
+            const uint32_t* src = d + (r0 + r) * S + s0;
+            for (int i = lane; i < len; i += 32)
+                __pipeline_memcpy_async(&tin[r][i], &src[i], sizeof(uint32_t));
+        }
+        __pipeline_commit();
+        __pipeline_wait_prior(0);
+        __syncwarp();
+        if (lane < rows) {
+            for (int i = 0; i < len; i++) {
+                const uint32_t dv = tin[lane][i];
+                uint32_t v = dv;
+                if (p.pp) {
+                    if (s0 + i == 0)
+                        v = p.sign_ext ? (dv ^ p.sign_bit) - p.sign_bit : dv;
+                    else
+                        v = p.signed_path ? step_signed(last, dv, p)
+                                          : step_unsigned(last, dv, p);
+                }
+                last = v;
+#pragma unroll
+                for (int b = 0; b < BSZ; b++)
+                    mine[i * BSZ + b] =
+                        (uint8_t)(v >> (8 * (p.msb ? BSZ - 1 - b : b)));
+            }
+        }
+        __syncwarp();
+        const int nbytes = len * BSZ;
+        for (int r = 0; r < rows; r++) {
+            uint8_t* dst = out + (r0 + r) * row_bytes + s0 * BSZ;
+            if (p.words) {
+                uint32_t* dw = reinterpret_cast<uint32_t*>(dst);
+                for (int i = lane; i < nbytes / 4; i += 32) dw[i] = tout[r][i];
+            } else {
+                const uint8_t* sb = reinterpret_cast<const uint8_t*>(tout[r]);
+                for (int i = lane; i < nbytes; i += 32) dst[i] = sb[i];
+            }
+        }
+        __syncwarp();
+    }
+}
+
+}  // namespace
+
+extern "C" int aec_unpredict_swizzle(const void* deltas, void* out,
+                                     long long n_rsi, int S, int bsz, int msb,
+                                     int pp, int signed_path, int sign_ext,
+                                     unsigned xmax, unsigned med,
+                                     unsigned sign_bit, void* stream) {
+    cudaStream_t s = (cudaStream_t)stream;
+    // word stores need every row and slab to start on a 4-byte boundary
+    const int words = ((long long)S * bsz) % 4 == 0;
+    const Params p{n_rsi, S, msb, pp, signed_path, sign_ext, words,
+                   xmax, med, sign_bit};
+    const unsigned grid = (unsigned)((n_rsi + 31) / 32);
+    const uint32_t* d = (const uint32_t*)deltas;
+    uint8_t* o = (uint8_t*)out;
+    switch (bsz) {
+        case 1: unpredict_swizzle_kernel<1><<<grid, 32, 0, s>>>(d, o, p); break;
+        case 2: unpredict_swizzle_kernel<2><<<grid, 32, 0, s>>>(d, o, p); break;
+        case 4: unpredict_swizzle_kernel<4><<<grid, 32, 0, s>>>(d, o, p); break;
+        default: return (int)cudaErrorInvalidValue;
+    }
+    return (int)cudaGetLastError();
+}

@@ -1,8 +1,9 @@
 """Build and load the CUDA kernels of libaec_tpu_torch/csrc.
 
-On first use, every `csrc/*.cu` is compiled by `nvcc` for sm_90a into one
-shared library with a plain C interface, bound with ctypes.  The sources
-include no PyTorch header, so a build takes seconds.  The library lands
+On first use, every `csrc/*.cu` is compiled by its own `nvcc` for sm_90a
+(all started together), and the objects are linked into one shared
+library with a plain C interface, bound with ctypes.  The sources include
+no PyTorch header, so a build takes seconds.  The library lands
 in `build/libaec_tpu_torch/` at the repository root, named by a hash of
 the sources and flags, so an edited source rebuilds and an unchanged one
 loads at once.
@@ -21,8 +22,9 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "libaec_tpu_torch"
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
+NVCC_FLAGS = [*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-c"]
+LINK_FLAGS = [*ARCH, "-shared"]
 
 P, I, LL, U = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_uint
 
@@ -35,6 +37,11 @@ SIGNATURES = {
                           I, I, I, I, I, I, I, I, I, I, U, U, U, P],
     # win, off, block_bits, words, tail, nb, w, nwords, stream
     "aec_merge_windows": [P, P, P, P, P, LL, I, LL, P],
+    # win, fs_bit, lsb_rel, meta, ref_sample, out, nb, wf, bs, bps, stream
+    "aec_decode_blocks": [P, P, P, P, P, P, LL, I, I, I, P],
+    # deltas, out, n_rsi, S, bsz, msb, pp, signed_path, sign_ext, xmax,
+    # med, sign_bit, stream
+    "aec_unpredict_swizzle": [P, P, LL, I, I, I, I, I, I, U, U, U, P],
 }
 
 _lock = threading.Lock()
@@ -57,7 +64,7 @@ def _sources():
 
 
 def library_path():
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
     for src in _sources():
         h.update(src.name.encode())
         h.update(src.read_bytes())
@@ -65,14 +72,33 @@ def library_path():
 
 
 def _build(so):
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = so.with_suffix(f".{os.getpid()}.tmp")
-    cus = [str(s) for s in _sources()]
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *cus]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
-    os.replace(tmp, so)
+    tmp = BUILD_DIR / f"tmp.{os.getpid()}"
+    tmp.mkdir(parents=True, exist_ok=True)
+    try:
+        nvcc = _nvcc()
+        jobs = []
+        for src in _sources():
+            obj = tmp / f"{src.stem}.o"
+            jobs.append((src, obj, subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, "-o", str(obj), str(src)],
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+        errors = []
+        for src, _, proc in jobs:
+            _, err = proc.communicate()
+            if proc.returncode != 0:
+                errors.append(f"{src.name} ({proc.returncode}):\n{err}")
+        if errors:
+            raise RuntimeError("nvcc failed: " + "\n".join(errors))
+        out = tmp / so.name
+        res = subprocess.run(
+            [nvcc, *LINK_FLAGS, "-o", str(out), *(str(o) for _, o, _ in jobs)],
+            capture_output=True, text=True)
+        if res.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({res.returncode}):\n"
+                               f"{res.stderr}")
+        os.replace(out, so)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
 
 
 def load():

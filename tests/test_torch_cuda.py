@@ -23,10 +23,18 @@ from libaec_tpu_torch import (  # noqa: E402
     AEC_DATA_MSB,
     AEC_DATA_PREPROCESS,
     AEC_DATA_SIGNED,
+    AEC_NOT_ENFORCE,
     Config,
 )
-from libaec_tpu_torch.kernels import encode_cuda, merge_cuda  # noqa: E402
-from libaec_tpu_torch.ops import bitpack  # noqa: E402
+from libaec_tpu.decode import WF_BUCKETS, scan_record_arrays  # noqa: E402
+from libaec_tpu_torch.kernels import (  # noqa: E402
+    decode_cuda,
+    encode_cuda,
+    merge_cuda,
+    unpredict_cuda,
+)
+from libaec_tpu_torch.ops import bitpack, bitunpack  # noqa: E402
+from libaec_tpu_torch.ops.u32 import u32_to_bits  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -119,3 +127,112 @@ def test_kernels_sweep_widths_and_layouts(dev, bps):
             data, cfg, device=dev, force_device=True,
             rsis_per_chunk=max(1, n_rsi // 3)) == \
             native.encode(data, cfg)[1], cfg
+
+
+DECODE_CONFIGS = [
+    BENCH,
+    Config(8, 16, 128, 0),
+    Config(13, 32, 64, AEC_DATA_SIGNED | AEC_DATA_PREPROCESS | AEC_DATA_MSB),
+    Config(32, 64, 256, AEC_DATA_SIGNED | AEC_DATA_PREPROCESS),
+    Config(16, 64, 256, AEC_DATA_MSB),
+]
+DECODE_IDS = ["bench16", "u8", "s13", "s32", "nopp16"]
+
+
+def scanned(cfg, raw):
+    """(stream, scan records, the decode path's bucket width) of raw."""
+    n_rsi = len(raw) // cfg.rsi_len_bytes
+    comp = native.encode(raw, cfg)[1]
+    recs, cnt, tail_bit = native.scan_blocks(
+        comp, n_rsi, bitunpack.max_fs_bits(cfg), cfg, wf=0)
+    assert cnt == n_rsi
+    return comp, dict(recs), bitunpack.bucket_wf(cfg, recs, tail_bit)
+
+
+@pytest.mark.parametrize("cfg", DECODE_CONFIGS, ids=DECODE_IDS)
+@pytest.mark.parametrize("kind", ["lowentropy", "mixed"])
+def test_decode_kernel_matches_plain(dev, cfg, kind):
+    """Kernel 3 against its plain version at the chunk's bucket width and
+    every wider width the decode path can choose."""
+    if kind == "lowentropy":
+        rng = np.random.default_rng(3)
+        raw = pack_samples(gen_values(rng, 24 * cfg.samples_per_rsi,
+                                      cfg.bits_per_sample, cfg.signed,
+                                      kind), cfg.bits_per_sample, cfg.flags)
+    else:  # one segment per tests/gen.py kind
+        raw = chunk(cfg, 24, cfg.bits_per_sample).numpy().tobytes()
+    comp, recs, bucket = scanned(cfg, raw)
+    wf_max = bitunpack.window_words(cfg)
+    widths = sorted({w for w in (*WF_BUCKETS, wf_max)
+                     if bucket <= w <= wf_max})
+    for wf in widths:
+        recs["win"] = native.fill_windows(comp, recs["fs_off"],
+                                          recs["meta"], wf)
+        args = [u32_to_bits(a) for a in scan_record_arrays(recs)]
+        want = decode_cuda.decode_blocks_plain(cfg, *args)
+        got = decode_cuda.decode_blocks(cfg, *(a.to(dev) for a in args))
+        assert torch.equal(got.cpu(), want), wf
+
+
+@pytest.mark.parametrize("cfg", DECODE_CONFIGS + [
+    Config(1, 8, 16, AEC_DATA_SIGNED | AEC_DATA_PREPROCESS),
+    Config(8, 10, 3, AEC_NOT_ENFORCE),  # rows of 30 bytes
+], ids=DECODE_IDS + ["s1", "u8bs10"])
+@pytest.mark.parametrize("full_range", [False, True])
+def test_unpredict_kernel_matches_plain(dev, cfg, full_range):
+    """Kernel 4 against its plain version on random deltas; full_range
+    draws them from all of u32 (the signed path's int32 wrap-around)."""
+    n_rsi = 40
+    rng = np.random.default_rng(cfg.bits_per_sample + 7 * full_range)
+    hi = 1 << (32 if full_range else min(cfg.bits_per_sample, 31))
+    deltas = u32_to_bits(rng.integers(
+        0, hi, (n_rsi, cfg.samples_per_rsi), dtype=np.uint64).astype(
+            np.uint32))
+    want = unpredict_cuda.unpredict_swizzle_plain(cfg, deltas)
+    got = unpredict_cuda.unpredict_swizzle(cfg, deltas.to(dev))
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("kind", ["lowentropy", "midentropy", "zero_runs",
+                                  "random"])
+def test_decode_buffer_matches_native(dev, kind):
+    """The decode slice in several chunks, whole and truncated, and with
+    an output size short of a whole sample."""
+    rng = np.random.default_rng(17)
+    vals = gen_values(rng, 40 * BENCH.samples_per_rsi + 999, 16, False, kind)
+    data = pack_samples(vals, 16, BENCH.flags)
+    comp = native.encode(data, BENCH)[1]
+
+    def decode(stream, out_size):
+        return libaec_tpu_torch.decode_buffer_status(
+            stream, BENCH, out_size, device=dev, force_device=True,
+            chunk_rsis=7)
+
+    before = decode_cuda.launches, unpredict_cuda.launches
+    assert decode(comp, len(data)) == (0, data)
+    assert decode_cuda.launches - before[0] == 6  # 40 RSIs in 7-RSI chunks
+    assert unpredict_cuda.launches - before[1] == 6
+    for stream, out_size in ((comp[: len(comp) // 2 + 3], len(data)),
+                             (comp, len(data) - 1)):
+        assert decode(stream, out_size) == native.decode(stream, out_size,
+                                                         BENCH)
+
+
+@pytest.mark.parametrize("bps", range(1, 33))
+def test_decode_sweep_widths_and_layouts(dev, bps):
+    """The decode slice on every width with several flag sets, block sizes
+    and RSI lengths, in several chunks, against the native decoder (3-byte
+    samples route to it)."""
+    rng = np.random.default_rng(200 + bps)
+    pp, sgn, msb = AEC_DATA_PREPROCESS, AEC_DATA_SIGNED, AEC_DATA_MSB
+    for flags in (0, pp, pp | sgn, pp | msb | AEC_DATA_3BYTE, sgn | msb):
+        cfg = Config(bps, int(rng.choice([8, 16, 32, 64])),
+                     int(rng.choice([1, 3, 64, 100, 257])), flags)
+        n_rsi = max(2, 1024 // cfg.rsi)
+        raw = chunk(cfg, n_rsi, bps * 37 + flags).numpy().tobytes()
+        data = raw + raw[: 5 * cfg.block_size * cfg.bytes_per_sample]
+        comp = native.encode(data, cfg)[1]
+        assert libaec_tpu_torch.decode_buffer_status(
+            comp, cfg, len(data), device=dev, force_device=True,
+            chunk_rsis=max(1, n_rsi // 3)) == \
+            native.decode(comp, len(data), cfg), cfg

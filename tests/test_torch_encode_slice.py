@@ -130,9 +130,13 @@ def test_port_never_imports_jax():
         "import sys\n"
         "import libaec_tpu_torch as lt\n"
         "cfg = lt.Config(16, 64, 256, lt.AEC_DATA_PREPROCESS)\n"
-        "out = lt.encode_buffer(bytes(range(256)) * 300, cfg, device='cpu',"
+        "data = bytes(range(256)) * 300\n"
+        "out = lt.encode_buffer(data, cfg, device='cpu',"
         " force_device=True)\n"
         "assert len(out) > 1\n"
+        "back = lt.decode_buffer(out, cfg, len(data), device='cpu',"
+        " force_device=True)\n"
+        "assert back == data\n"
         "print('jax' in sys.modules)\n")
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, check=True)
