@@ -5,12 +5,14 @@
 
 Builds the CUDA kernels from libaec_tpu_torch/csrc with nvcc, holds each
 kernel bit-exactly against its plain PyTorch version on the card at the
-chunk shape the main path launches, then drives the port's two main
-paths: libaec_tpu_torch.encode_buffer over two 256 MiB buffers, held
-against the native encoder and a native decode round trip, and
-libaec_tpu_torch.decode_buffer_status over the two streams it made, held
-against the input and the native decoder.  Imports no JAX.  Exits non-zero, and prints no result line, on any
-failure or when no CUDA device is present.
+chunk shape the main path launches, then drives the port's main paths
+at two configs, 16-bit samples (the bench config) and 24-bit samples
+stored in 3 bytes: libaec_tpu_torch.encode_buffer over two 256 MiB
+buffers, held against the native encoder and a native decode round trip,
+and libaec_tpu_torch.decode_buffer_status over the two streams it made,
+held against the input and the native decoder.  Imports no JAX.  Exits
+non-zero, and prints no result line, on any failure or when no CUDA
+device is present.
 
 The last two lines of standard output are JSON: the kernels' summary,
 then {"ok": true, "device": {...}}.
@@ -216,21 +218,56 @@ def check_unpredict_kernel(name, cfg, raw, deltas, comp, device):
     return err, ms, plain_ms
 
 
-def run_slice(mib, device, seed):
-    """The main path on `mib` MiB buffers of 16-bit MSB samples."""
+def check_unpredict_rsis_kernel(name, cfg, d, want_bytes=None):
+    """Kernel 5 against its plain version on deltas d [n_rsi, S] (one
+    timed plain run: a loop over the RSI's samples), then kernel 4's byte
+    layout on its samples against the layout's plain version, then kernel
+    4 in one pass (inverse predictor and layout) against the two.
+    want_bytes, if given, are native.decode's bytes for the chunk.
+    Returns (kernel 5's max_abs_err, ms, plain_ms, the layout's
+    max_abs_err)."""
+    from libaec_tpu_torch.kernels import unpredict_cuda
+
+    got, ms = timed(lambda: unpredict_cuda.unpredict_rsis(cfg, d), 20)
+    want, plain_ms = timed(
+        lambda: unpredict_cuda.unpredict_rsis_plain(cfg, d), 1, warmup=0)
+    err = max_abs_err(got, want)
+    out, layout_ms = timed(lambda: unpredict_cuda.samples_to_bytes(cfg, got),
+                           20)
+    ref, layout_plain_ms = timed(
+        lambda: unpredict_cuda.samples_to_bytes_plain(cfg, got), 3, warmup=1)
+    layout_err = max_abs_err(out, ref)
+    one, one_ms = timed(lambda: unpredict_cuda.unpredict_swizzle(cfg, d), 20)
+    one_pass_ok = torch.equal(one, out)
+    native_ok = (want_bytes is None
+                 or out.cpu().numpy().tobytes() == want_bytes)
+    print(f"kernel unpredict_rsis [{name}] n_rsi={d.shape[0]} S={d.shape[1]}"
+          f" max_abs_err={err} ms={ms:.4f} plain_ms={plain_ms:.4f} | "
+          f"samples_to_bytes max_abs_err={layout_err} ms={layout_ms:.4f} "
+          f"plain_ms={layout_plain_ms:.4f} | two kernels "
+          f"ms={ms + layout_ms:.4f}, unpredict_swizzle in one pass "
+          f"ms={one_ms:.4f} identical={one_pass_ok} | "
+          f"identical_to_native={native_ok if want_bytes else 'n/a'}")
+    if err or layout_err or not one_pass_ok or not native_ok:
+        raise AssertionError(f"unpredict_rsis / layout differ ({name})")
+    return err, ms, plain_ms, layout_err
+
+
+def run_slice(cfg, mib, device, seed):
+    """The encode main path on `mib` MiB buffers of cfg's samples."""
     import gen
 
     import libaec_tpu_torch as lt
     from libaec_tpu import native
     from libaec_tpu_torch.kernels import encode_cuda, merge_cuda
 
-    cfg = lt.Config(16, 64, 256, lt.AEC_DATA_MSB | lt.AEC_DATA_PREPROCESS)
+    bps, bsz = cfg.bits_per_sample, cfg.bytes_per_sample
     rng = np.random.default_rng(seed)
-    n = (mib << 20) // 2 + 12345          # odd tail: a partial RSI
+    n = (mib << 20) // bsz + 12345        # odd tail: a partial RSI
     buffers = []
     for kind in ("lowentropy", "midentropy"):
-        data = gen.pack_samples(gen.gen_values(rng, n, 16, False, kind),
-                                16, cfg.flags) + b"\x5a"  # odd trailing byte
+        data = gen.pack_samples(gen.gen_values(rng, n, bps, cfg.signed, kind),
+                                bps, cfg.flags) + b"\x5a"  # short of a sample
         buffers.append((kind, data))
     # warm-up: pinned staging buffers, the allocator's pools
     lt.encode_buffer(buffers[0][1][: 64 << 20], cfg, device=device)
@@ -252,11 +289,11 @@ def run_slice(mib, device, seed):
         status, want = native.encode(data, cfg)
         if status != 0 or comp != want:
             raise AssertionError(f"{kind}: stream differs from native.encode")
-        body = data[: len(data) // 2 * 2]
+        body = data[: len(data) // bsz * bsz]
         status, back = native.decode(comp, len(body), cfg)
         if status != 0 or back != body:
             raise AssertionError(f"{kind}: native decode round trip failed")
-        print(f"slice encode_buffer [{kind}] bytes={len(data)} "
+        print(f"slice encode_buffer [{bps}-bit {kind}] bytes={len(data)} "
               f"seconds={secs:.4f} MiB/s={len(data) / secs / 2**20:.2f} "
               f"ratio={len(data) / len(comp):.4f} "
               f"peak_device_MiB={peak / 2**20:.1f} "
@@ -264,12 +301,12 @@ def run_slice(mib, device, seed):
     for name, count in launches.items():
         if count <= 0:
             raise AssertionError(f"main path never launched {name}")
-    print(f"slice launches {json.dumps(launches)}")
+    print(f"slice launches [{bps}-bit encode] {json.dumps(launches)}")
     for kind, data, _, _ in results:
         with encode_timers() as spent:
-            host_breakdown(kind, lambda: lt.encode_buffer(
+            host_breakdown(f"{bps}-bit {kind}", lambda: lt.encode_buffer(
                 data, cfg, device=device), spent)
-    profile_call("encode_buffer", lambda: lt.encode_buffer(
+    profile_call(f"encode_buffer {bps}-bit", lambda: lt.encode_buffer(
         results[0][1], cfg, device=device))
     return launches, results
 
@@ -277,10 +314,20 @@ def run_slice(mib, device, seed):
 def run_decode_slice(results, cfg, device):
     """The decode main path on the streams run_slice made: identical to
     the input and to native.decode; a truncated stream and an out_size
-    short of a whole sample give native.decode's (status, bytes)."""
+    short of a whole sample give native.decode's (status, bytes).  Every
+    kernel the config's route runs must have launched."""
     import libaec_tpu_torch as lt
     from libaec_tpu import native
     from libaec_tpu_torch.kernels import decode_cuda, unpredict_cuda
+
+    counters = {  # wrapper: (module, its launch counter)
+        "decode_blocks": (decode_cuda, "launches"),
+        "unpredict_swizzle": (unpredict_cuda, "launches"),
+        "unpredict_rsis": (unpredict_cuda, "rsis_launches"),
+        "samples_to_bytes": (unpredict_cuda, "layout_launches")}
+    bps, bsz = cfg.bits_per_sample, cfg.bytes_per_sample
+    route = ["decode_blocks"] + (["unpredict_rsis", "samples_to_bytes"]
+                                 if bsz == 3 else ["unpredict_swizzle"])
 
     def decode(comp, out_size):
         return lt.decode_buffer_status(comp, cfg, out_size, device=device)
@@ -288,18 +335,19 @@ def run_decode_slice(results, cfg, device):
     # warm-up: pinned slots, the allocator's pools, the worker threads
     decode(results[0][2], 64 << 20)
 
-    decode_cuda.launches = unpredict_cuda.launches = 0
+    for mod, attr in counters.values():
+        setattr(mod, attr, 0)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(device)
     runs = []
     for kind, data, comp, _ in results:
-        body = data[: len(data) // 2 * 2]
+        body = data[: len(data) // bsz * bsz]
         t0 = time.perf_counter()
         status, out = decode(comp, len(body))
         runs.append((kind, body, comp, status, out,
                      time.perf_counter() - t0))
-    launches = {"decode_blocks": decode_cuda.launches,
-                "unpredict_swizzle": unpredict_cuda.launches}
+    launches = {name: getattr(mod, attr)
+                for name, (mod, attr) in counters.items()}
     peak = torch.cuda.max_memory_allocated(device)
 
     for kind, body, comp, status, out, secs in runs:
@@ -311,16 +359,17 @@ def run_decode_slice(results, cfg, device):
         native_secs = time.perf_counter() - t0
         if want != (status, out):
             raise AssertionError(f"{kind}: decode differs from native")
-        print(f"slice decode_buffer_status [{kind}] stream_bytes={len(comp)}"
+        print(f"slice decode_buffer_status [{bps}-bit {kind}] "
+              f"stream_bytes={len(comp)}"
               f" bytes={len(body)} seconds={secs:.4f} "
               f"MiB/s={len(body) / secs / 2**20:.2f} "
               f"native_MiB/s={len(body) / native_secs / 2**20:.2f} "
               f"peak_device_MiB={peak / 2**20:.1f} identical_to_input=True "
               f"identical_to_native=True")
-    for name, count in launches.items():
-        if count <= 0:
+    for name in route:
+        if launches[name] <= 0:
             raise AssertionError(f"main path never launched {name}")
-    print(f"slice launches {json.dumps(launches)}")
+    print(f"slice launches [{bps}-bit decode] {json.dumps(launches)}")
 
     _, body, comp, _, _, _ = runs[0]
     for label, stream, out_size in (
@@ -332,14 +381,15 @@ def run_decode_slice(results, cfg, device):
             raise AssertionError(f"{label}: status {got[0]} and "
                                  f"{len(got[1])} bytes, native {want[0]} "
                                  f"and {len(want[1])}")
-        print(f"slice decode_buffer_status [{label}] status={got[0]} "
+        print(f"slice decode_buffer_status [{bps}-bit {label}] "
+              f"status={got[0]} "
               f"bytes={len(got[1])} identical_to_native=True")
 
     for kind, body, comp, _, _, _ in runs:
         with decode_timers() as spent:
-            host_breakdown(f"decode {kind}",
+            host_breakdown(f"decode {bps}-bit {kind}",
                            lambda: decode(comp, len(body)), spent)
-    profile_call("decode_buffer_status",
+    profile_call(f"decode_buffer_status {bps}-bit",
                  lambda: decode(runs[0][2], len(runs[0][1])))
     return launches
 
@@ -468,10 +518,13 @@ def main():
         return 1
     sys.path[:0] = [str(ROOT), str(ROOT / "tests")]
     import libaec_tpu_torch  # noqa: F401  (fails outside the repository)
-    from libaec_tpu_torch import (AEC_DATA_MSB, AEC_DATA_PREPROCESS,
-                                  AEC_DATA_SIGNED, Config)
+    from libaec_tpu import native
+    from libaec_tpu_torch import (AEC_DATA_3BYTE, AEC_DATA_MSB,
+                                  AEC_DATA_PREPROCESS, AEC_DATA_SIGNED,
+                                  AEC_NOT_ENFORCE, Config)
     from libaec_tpu_torch.encode import default_rsis_per_chunk
     from libaec_tpu_torch.kernels import _build
+    from libaec_tpu_torch.ops.u32 import u32_to_bits
 
     device = torch.device("cuda", 0)
     torch.cuda.set_device(device)
@@ -494,7 +547,9 @@ def main():
     # 3. kernel 1 against its plain version, each config at the chunk the
     #    main path gives it (encode.default_rsis_per_chunk)
     pp, msb, sgn = AEC_DATA_PREPROCESS, AEC_DATA_MSB, AEC_DATA_SIGNED
+    b3, ne = AEC_DATA_3BYTE, AEC_NOT_ENFORCE
     bench_cfg = Config(16, 64, 256, msb | pp)
+    cfg24 = Config(24, 64, 256, msb | pp | b3)  # 24-bit samples in 3 bytes
     bench, err1, ms1, plain1 = check_encode_kernel(
         "bench 16-bit MSB pp bs64 rsi256", bench_cfg,
         default_rsis_per_chunk(bench_cfg), device)
@@ -506,6 +561,10 @@ def main():
          None, True),
         ("32-bit signed bs64 rsi256", Config(32, 64, 256, sgn | pp), None,
          False),
+        ("16-bit MSB pp NOT_ENFORCE bs10 rsi256",
+         Config(16, 10, 256, msb | pp | ne), None, False),
+        ("24-bit MSB pp 3-byte NOT_ENFORCE bs48 rsi256",
+         Config(24, 48, 256, msb | pp | b3 | ne), None, False),
     ]
     for name, cfg, n_rsi, dirty in checks:
         _, e, _, _ = check_encode_kernel(
@@ -517,7 +576,8 @@ def main():
                                            device)
 
     # 5. the encode main path
-    launches, streams = run_slice(SLICE_MIB, device, seed=20261016)
+    launches, streams = run_slice(bench_cfg, SLICE_MIB, device,
+                                  seed=20261016)
 
     # 6. kernel 3 against its plain version, each config at the chunk the
     #    decode path gives it (8 Mi samples: 512 RSIs, NB 131072 at the
@@ -559,8 +619,37 @@ def main():
         if name == "bench walk 2":
             ms4, plain4 = ms, plain
 
-    # 8. the decode main path on the streams of phase 5
+    # 8. kernel 5, the byte layout (kernel 4 without preprocessing) and
+    #    kernel 4 in one pass, on the 3-byte decode path's chunk: deltas
+    #    from kernel 3 on a scanned stream (kernel 3 checked there too),
+    #    and deltas from all of u32
+    err5, rng = 0, np.random.default_rng(24)
+    for name, cfg in (("24-bit MSB pp 3-byte bs64 rsi256", cfg24),
+                      ("17-bit signed pp 3-byte bs32 rsi64",
+                       Config(17, 32, 64, sgn | pp | b3))):
+        raw = chunk_data(cfg, decode_chunk_rsis(cfg), cfg.bits_per_sample)
+        rows, deltas, comp = check_decode_kernel(name, cfg, raw, device)
+        err3 = max(err3, *(r[1] for r in rows))
+        status, want = native.decode(comp, len(raw), cfg)
+        if status != 0:
+            raise AssertionError(f"native decode failed ({name})")
+        d = deltas.view(-1, cfg.samples_per_rsi)
+        e, ms, plain, le = check_unpredict_rsis_kernel(
+            f"{name} scanned", cfg, d, want)
+        if cfg == cfg24:
+            ms5, plain5 = ms, plain
+        full = u32_to_bits(rng.integers(0, 1 << 32, tuple(d.shape),
+                                        dtype=np.uint64).astype(np.uint32))
+        e2, _, _, le2 = check_unpredict_rsis_kernel(
+            f"{name} all of u32", cfg, full.to(device))
+        err5, err4 = max(err5, e, e2), max(err4, le, le2)
+
+    # 9. the decode main path on the streams of phase 5
     dec_launches = run_decode_slice(streams, bench_cfg, device)
+
+    # 10. both main paths on 24-bit samples stored in 3 bytes
+    _, streams24 = run_slice(cfg24, SLICE_MIB, device, seed=20261017)
+    dec24_launches = run_decode_slice(streams24, cfg24, device)
     if "jax" in sys.modules:
         raise AssertionError("jax was imported")
 
@@ -585,6 +674,11 @@ def main():
          "replaces": "libaec_tpu/kernels/unpredict_pallas.py:83",
          "launches": dec_launches["unpredict_swizzle"], "max_abs_err": err4,
          "ms": ms4, "plain_ms": plain4},
+        {"name": "unpredict_rsis", "route": "cuda",
+         "source": "libaec_tpu_torch/csrc/unpredict.cu",
+         "replaces": "libaec_tpu/kernels/unpredict_pallas.py:22",
+         "launches": dec24_launches["unpredict_rsis"], "max_abs_err": err5,
+         "ms": ms5, "plain_ms": plain5},
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -4,11 +4,12 @@ The port of libaec_tpu (JAX/Pallas on a TPU) to an NVIDIA Hopper GPU.
 This package imports torch and never jax.  It reuses the JAX package's
 host-only code (Config, constants, the native C++ runtime with its
 structural scan and serial decoder, the numpy tail encoder) by import.
-Four hand-written CUDA kernels, built with nvcc at first use, carry the
+Five hand-written CUDA kernels, built with nvcc at first use, carry the
 device paths: encode through kernels/encode_cuda.py and merge_cuda.py,
 decode through kernels/decode_cuda.py (payload parse) and
-unpredict_cuda.py (inverse predictor and byte layout).  Every kernel has
-a plain PyTorch version beside it.
+unpredict_cuda.py (inverse predictor and byte layout in one pass, or for
+3-byte samples the inverse predictor alone and then the layout).  Every
+kernel has a plain PyTorch version beside it.
 
 The codec has no weights: both packages take the same Config object, the
 same (k, bit0) carries and the same scan records (scan_record_arrays), so

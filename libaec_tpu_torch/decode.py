@@ -6,9 +6,9 @@ code, which imports no JAX: the records-only structural walk
 (native.scan_blocks) on the calling thread, the window bucketing and fill
 (native.fill_windows) on one worker, both writing straight into pinned
 host buffers.  Phase 2 copies each chunk to the device and runs kernel 3
-(kernels/decode_cuda.py) and kernel 4
-(kernels/unpredict_cuda.py), at most 4 chunks in flight; one FIFO fetch
-thread copies the output back.  The serial native tail
+(kernels/decode_cuda.py) and kernel 4, or for 3-byte samples kernel 5 and
+kernel 4's byte layout (kernels/unpredict_cuda.py), at most 4 chunks in
+flight; one FIFO fetch thread copies the output back.  The serial native tail
 (native.decode_tail) finishes what the scan could not validate, which
 gives the reference's status and truncation semantics.
 
@@ -113,13 +113,18 @@ def stage_chunk(slot, n, wf, device):
 
 
 def decode_chunk(cfg, win, rec, n_rsi):
-    """Kernels 3 and 4 on one chunk of n_rsi whole RSIs: its output bytes,
-    uint8 [n_rsi, S * bytes_per_sample]."""
+    """The kernels on one chunk of n_rsi whole RSIs: its output bytes,
+    uint8 [n_rsi, S * bytes_per_sample].  Kernel 3, then kernel 4; for
+    3-byte samples, as the JAX route (decode.py:147-149), kernel 5 (with
+    preprocessing) and kernel 4 as the byte layout alone."""
     n = n_rsi * cfg.rsi
     deltas = decode_cuda.decode_blocks(cfg, win, rec[0, :n], rec[1, :n],
                                        rec[2, :n], rec[3, :n])
-    return unpredict_cuda.unpredict_swizzle(
-        cfg, deltas.view(n_rsi, cfg.samples_per_rsi))
+    deltas = deltas.view(n_rsi, cfg.samples_per_rsi)
+    if cfg.bytes_per_sample == 3:
+        return unpredict_cuda.samples_to_bytes(
+            cfg, unpredict_cuda.unpredict_rsis(cfg, deltas))
+    return unpredict_cuda.unpredict_swizzle(cfg, deltas)
 
 
 def fetch_chunk(chunk_out, dst, staging):
@@ -267,7 +272,7 @@ def decode_buffer_device(data, cfg: Config, out_size, device,
 
 def _use_device(cfg, out_size, force_device):
     """Routing twin of _device_decode_wanted (libaec_tpu/decode.py:37-59):
-    the device when both kernel gates pass, the native scan is present,
+    the device when the kernel gates pass, the native scan is present,
     and the output is large (or force_device is set)."""
     if not _kernels_supported(cfg):
         return False
@@ -286,8 +291,8 @@ def decode_buffer_status(data, cfg: Config, out_size, device="cuda",
     """One-shot decode with C-style (status, bytes) result
     (aec_buffer_decode parity), twin of libaec_tpu.decode_buffer_status.
 
-    Outputs of at least 16 MiB whose config passes both kernel gates
-    (block size 8..64; 1-, 2- or 4-byte samples) decode on `device`;
+    Outputs of at least 16 MiB whose config passes the kernel gates
+    (block size 8..64; any sample width) decode on `device`;
     `force_device=True` drops the size threshold (the tests use it to
     reach the device path at small sizes).  Everything else goes to the
     native decoder.  A device that is missing raises; nothing falls back

@@ -42,6 +42,9 @@ SIGNATURES = {
     # deltas, out, n_rsi, S, bsz, msb, pp, signed_path, sign_ext, xmax,
     # med, sign_bit, stream
     "aec_unpredict_swizzle": [P, P, LL, I, I, I, I, I, I, U, U, U, P],
+    # deltas, out, n_rsi, S, signed_path, sign_ext, xmax, med, sign_bit,
+    # stream
+    "aec_unpredict_rsis": [P, P, LL, I, I, I, U, U, U, P],
 }
 
 _lock = threading.Lock()

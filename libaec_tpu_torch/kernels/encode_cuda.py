@@ -20,9 +20,10 @@ launches = 0
 
 
 def kernel_supported(cfg):
-    """The kernel gate: splitting on, power-of-two blocks up to 64, no
-    per-RSI padding (encode_pallas.kernel_supported minus TPU tiling)."""
-    return (cfg.id_len >= 2 and cfg.block_size in (8, 16, 32, 64)
+    """The kernel gate: splitting on, blocks of 8 to 64 samples (any even
+    size under AEC_NOT_ENFORCE), no per-RSI padding
+    (encode_pallas.kernel_supported minus TPU tiling)."""
+    return (cfg.id_len >= 2 and 8 <= cfg.block_size <= 64
             and not cfg.pad_rsi)
 
 

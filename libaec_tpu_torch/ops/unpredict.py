@@ -58,8 +58,8 @@ def unpredict_rsis(cfg, deltas):
 def samples_to_bytes(cfg, samples):
     """int64 u32 samples [..., n] -> the stream's bytes, uint8 [..., n * bsz]
     in put_* order, MSB or LSB first (decode.c:144-189; the byte layout of
-    samples_to_bytes_device, unpredict.py:67-99, for 1-, 2- and 4-byte
-    samples)."""
+    samples_to_bytes_device, unpredict.py:67-112, for 1-, 2-, 3- and
+    4-byte samples)."""
     bsz = cfg.bytes_per_sample
     shifts = [8 * ((bsz - 1 - b) if cfg.msb else b) for b in range(bsz)]
     parts = [(samples >> s) & 0xFF for s in shifts]

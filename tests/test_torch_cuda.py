@@ -65,7 +65,10 @@ def chunk(cfg, n_rsi, seed):
     Config(8, 16, 128, 0),
     Config(13, 32, 64, AEC_DATA_SIGNED | AEC_DATA_PREPROCESS | AEC_DATA_MSB),
     Config(32, 64, 256, AEC_DATA_SIGNED | AEC_DATA_PREPROCESS),
-], ids=["bench16", "u8", "s13", "s32"])
+    Config(16, 10, 32, AEC_DATA_MSB | AEC_DATA_PREPROCESS | AEC_NOT_ENFORCE),
+    Config(24, 48, 16, AEC_DATA_MSB | AEC_DATA_PREPROCESS | AEC_DATA_3BYTE
+           | AEC_NOT_ENFORCE),
+], ids=["bench16", "u8", "s13", "s32", "bs10", "u24bs48"])
 def test_encode_kernel_matches_plain(dev, cfg):
     raw = chunk(cfg, 24, cfg.bits_per_sample)
     k0 = torch.tensor([min(3, cfg.kmax)], dtype=torch.int32)
@@ -100,16 +103,18 @@ def test_encode_buffer_matches_native(dev, kind):
 
 @pytest.mark.parametrize("bps", range(1, 33))
 def test_kernels_sweep_widths_and_layouts(dev, bps):
-    """Every width with several flag sets, block sizes and RSI lengths
-    (RSIs of 1 block, of lengths that cut a 64-block segment, 3-byte
-    samples): kernel 1 against its plain version from a random k_init,
-    and the whole slice, in several chunks with an odd tail, against the
-    native encoder."""
+    """Every width with several flag sets, block sizes (AEC_NOT_ENFORCE
+    sizes 10, 24 and 48 among them) and RSI lengths (RSIs of 1 block, of
+    lengths that cut a 64-block segment, 3-byte samples): kernel 1
+    against its plain version from a random k_init, and the whole slice,
+    in several chunks with an odd tail, against the native encoder."""
     rng = np.random.default_rng(100 + bps)
     pp, sgn, msb = AEC_DATA_PREPROCESS, AEC_DATA_SIGNED, AEC_DATA_MSB
     for flags in (0, pp, pp | sgn, pp | msb | AEC_DATA_3BYTE, sgn | msb):
-        cfg = Config(bps, int(rng.choice([8, 16, 32, 64])),
-                     int(rng.choice([1, 3, 64, 100, 257])), flags)
+        bs = int(rng.choice([8, 16, 32, 64, 10, 24, 48]))
+        if bs not in (8, 16, 32, 64):
+            flags |= AEC_NOT_ENFORCE
+        cfg = Config(bps, bs, int(rng.choice([1, 3, 64, 100, 257])), flags)
         if not encode_cuda.kernel_supported(cfg):
             continue
         n_rsi = max(2, 1024 // cfg.rsi)
@@ -129,14 +134,16 @@ def test_kernels_sweep_widths_and_layouts(dev, bps):
             native.encode(data, cfg)[1], cfg
 
 
+U24 = Config(24, 64, 256, AEC_DATA_MSB | AEC_DATA_PREPROCESS | AEC_DATA_3BYTE)
 DECODE_CONFIGS = [
     BENCH,
     Config(8, 16, 128, 0),
     Config(13, 32, 64, AEC_DATA_SIGNED | AEC_DATA_PREPROCESS | AEC_DATA_MSB),
     Config(32, 64, 256, AEC_DATA_SIGNED | AEC_DATA_PREPROCESS),
     Config(16, 64, 256, AEC_DATA_MSB),
+    U24,
 ]
-DECODE_IDS = ["bench16", "u8", "s13", "s32", "nopp16"]
+DECODE_IDS = ["bench16", "u8", "s13", "s32", "nopp16", "u24"]
 
 
 def scanned(cfg, raw):
@@ -193,6 +200,94 @@ def test_unpredict_kernel_matches_plain(dev, cfg, full_range):
     assert torch.equal(got.cpu(), want)
 
 
+# kernel 5's configs: 3-byte samples (the decode path's), and others
+RSIS_CONFIGS = [
+    U24,
+    Config(17, 32, 64, AEC_DATA_SIGNED | AEC_DATA_PREPROCESS | AEC_DATA_3BYTE),
+    Config(24, 16, 8, AEC_DATA_SIGNED | AEC_DATA_PREPROCESS | AEC_DATA_3BYTE),
+    Config(20, 10, 3, AEC_DATA_PREPROCESS | AEC_DATA_3BYTE
+           | AEC_NOT_ENFORCE),  # 3-byte rows of 90 bytes
+    BENCH,
+    Config(32, 64, 8, AEC_DATA_SIGNED | AEC_DATA_PREPROCESS),
+]
+RSIS_IDS = ["u24", "s17", "s24", "u20bs10", "bench16", "s32"]
+
+
+def random_deltas(cfg, n_rsi, seed, full_range):
+    """Random deltas (int32 bits), in range or from all of u32."""
+    rng = np.random.default_rng(seed)
+    hi = 1 << (32 if full_range else min(cfg.bits_per_sample, 31))
+    return u32_to_bits(rng.integers(
+        0, hi, (n_rsi, cfg.samples_per_rsi), dtype=np.uint64).astype(
+            np.uint32))
+
+
+@pytest.mark.parametrize("cfg", RSIS_CONFIGS, ids=RSIS_IDS)
+@pytest.mark.parametrize("full_range", [False, True])
+def test_unpredict_rsis_kernel_matches_plain(dev, cfg, full_range):
+    """Kernel 5 against its plain version; then the byte layout (kernel 4
+    without preprocessing) on its samples against the layout's plain
+    version, and kernel 4 in one pass against the two."""
+    deltas = random_deltas(cfg, 40, cfg.bits_per_sample + 5 * full_range,
+                           full_range)
+    before = unpredict_cuda.rsis_launches, unpredict_cuda.layout_launches
+    want = unpredict_cuda.unpredict_rsis_plain(cfg, deltas)
+    got = unpredict_cuda.unpredict_rsis(cfg, deltas.to(dev))
+    assert torch.equal(got.cpu(), want)
+    layout = unpredict_cuda.samples_to_bytes(cfg, got)
+    assert torch.equal(layout.cpu(),
+                       unpredict_cuda.samples_to_bytes_plain(cfg, want))
+    assert (unpredict_cuda.rsis_launches - before[0],
+            unpredict_cuda.layout_launches - before[1]) == (1, 1)
+    one_pass = unpredict_cuda.unpredict_swizzle(cfg, deltas.to(dev))
+    assert torch.equal(one_pass, layout)
+
+
+@pytest.mark.parametrize("msb", [0, AEC_DATA_MSB])
+@pytest.mark.parametrize("bps,bs,rsi,extra", [
+    (24, 64, 4, AEC_DATA_3BYTE),                    # word-aligned rows
+    (17, 10, 3, AEC_DATA_3BYTE | AEC_NOT_ENFORCE),  # rows of 90 bytes
+    (16, 8, 5, 0),
+    (8, 10, 1, AEC_NOT_ENFORCE),                    # rows of 10 bytes
+])
+def test_samples_to_bytes_kernel_matches_plain(dev, msb, bps, bs, rsi,
+                                               extra):
+    cfg = Config(bps, bs, rsi, extra | msb)
+    samples = random_deltas(cfg, 37, bps + bs + msb, True)
+    want = unpredict_cuda.samples_to_bytes_plain(cfg, samples)
+    assert want.shape == (37, cfg.samples_per_rsi * cfg.bytes_per_sample)
+    got = unpredict_cuda.samples_to_bytes(cfg, samples.to(dev))
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("kind", ["lowentropy", "midentropy", "zero_runs",
+                                  "random"])
+def test_decode_buffer_3byte_matches_native(dev, kind):
+    """The 3-byte decode slice (kernels 3, 5 and the byte layout) in
+    several chunks, whole and truncated, and with an output size short
+    of a whole sample."""
+    cfg = Config(24, 64, 16, U24.flags)
+    rng = np.random.default_rng(19)
+    vals = gen_values(rng, 40 * cfg.samples_per_rsi + 999, 24, False, kind)
+    data = pack_samples(vals, 24, cfg.flags)
+    comp = native.encode(data, cfg)[1]
+
+    def decode(stream, out_size):
+        return libaec_tpu_torch.decode_buffer_status(
+            stream, cfg, out_size, device=dev, force_device=True,
+            chunk_rsis=7)
+
+    counters = ("launches", "rsis_launches", "layout_launches")
+    before = [getattr(unpredict_cuda, c) for c in counters]
+    assert decode(comp, len(data)) == (0, data)
+    moved = [getattr(unpredict_cuda, c) - b for c, b in zip(counters, before)]
+    assert moved == [0, 6, 6]  # 40 RSIs in 7-RSI chunks
+    for stream, out_size in ((comp[: len(comp) // 2 + 3], len(data)),
+                             (comp, len(data) - 1), (comp, len(data) - 2)):
+        assert decode(stream, out_size) == native.decode(stream, out_size,
+                                                         cfg)
+
+
 @pytest.mark.parametrize("kind", ["lowentropy", "midentropy", "zero_runs",
                                   "random"])
 def test_decode_buffer_matches_native(dev, kind):
@@ -221,8 +316,9 @@ def test_decode_buffer_matches_native(dev, kind):
 @pytest.mark.parametrize("bps", range(1, 33))
 def test_decode_sweep_widths_and_layouts(dev, bps):
     """The decode slice on every width with several flag sets, block sizes
-    and RSI lengths, in several chunks, against the native decoder (3-byte
-    samples route to it)."""
+    and RSI lengths, in several chunks, against the native decoder.  Every
+    config reaches the card; 3-byte samples with preprocessing go through
+    kernel 5."""
     rng = np.random.default_rng(200 + bps)
     pp, sgn, msb = AEC_DATA_PREPROCESS, AEC_DATA_SIGNED, AEC_DATA_MSB
     for flags in (0, pp, pp | sgn, pp | msb | AEC_DATA_3BYTE, sgn | msb):
@@ -232,7 +328,11 @@ def test_decode_sweep_widths_and_layouts(dev, bps):
         raw = chunk(cfg, n_rsi, bps * 37 + flags).numpy().tobytes()
         data = raw + raw[: 5 * cfg.block_size * cfg.bytes_per_sample]
         comp = native.encode(data, cfg)[1]
+        before = decode_cuda.launches, unpredict_cuda.rsis_launches
         assert libaec_tpu_torch.decode_buffer_status(
             comp, cfg, len(data), device=dev, force_device=True,
             chunk_rsis=max(1, n_rsi // 3)) == \
             native.decode(comp, len(data), cfg), cfg
+        assert decode_cuda.launches > before[0], cfg
+        assert (unpredict_cuda.rsis_launches > before[1]) == (
+            cfg.bytes_per_sample == 3 and cfg.preprocess), cfg

@@ -146,7 +146,8 @@ def test_kernel_gates():
     from libaec_tpu.constants import AEC_DATA_3BYTE, AEC_NOT_ENFORCE
     assert not decode_cuda.kernel_supported(
         Config(16, 128, 32, pp | AEC_NOT_ENFORCE))
-    assert not unpredict_cuda.kernel_supported(
-        Config(24, 64, 32, pp | AEC_DATA_3BYTE))
-    for bps in (8, 16, 32):
-        assert unpredict_cuda.kernel_supported(Config(bps, 64, 32, pp))
+    for bps, flags in ((8, pp), (16, pp), (24, pp | AEC_DATA_3BYTE),
+                       (32, pp)):
+        assert unpredict_cuda.kernel_supported(Config(bps, 64, 32, flags))
+    assert unpredict_cuda.kernel_supported(
+        Config(20, 10, 3, pp | AEC_DATA_3BYTE | AEC_NOT_ENFORCE))

@@ -4,8 +4,9 @@ libaec_tpu_torch.decode_buffer_status with the device path forced on CPU
 tensors (the kernels' plain versions) must give the same status and
 bytes as libaec_tpu.decode.decode_buffer_tpu and as the native decoder:
 for every tests/gen.py kind, in one chunk and in many, on truncated
-streams, on an output size short of a whole sample, on zero runs, and
-through part_sink.  Signed data is held against the native decoder: it
+streams, on an output size short of a whole sample, on zero runs, on
+3-byte samples, and through part_sink.  Signed data is held against the
+native decoder: it
 decodes sign-extended, so it need not round-trip byte for byte (ROADMAP
 C.4); tests/test_decode_tpu.py holds decode_buffer_tpu against the
 native decoder on the same configs.  Tolerance zero.
@@ -106,6 +107,50 @@ def test_slice_other_layouts_match_native(bps, bs, rsi, flags):
         assert torch_decode(comp, cfg, len(raw), chunk_rsis=3) == want, kind
 
 
+B3 = AEC_DATA_3BYTE
+
+
+@pytest.mark.parametrize("bps,bs,rsi,flags", [
+    (24, 64, 16, MSB | PP | B3),
+    (17, 32, 8, SGN | PP | B3),
+    (24, 8, 16, B3),
+    (20, 10, 3, AEC_NOT_ENFORCE | PP | B3),  # rows of 90 bytes
+])
+def test_slice_3byte_matches_jax_and_native(bps, bs, rsi, flags):
+    """3-byte samples take the device path: kernels 3 and 5, then kernel
+    4's byte layout, as decode_buffer_tpu runs its Pallas kernels and
+    samples_to_bytes_device."""
+    cfg = Config(bps, bs, rsi, flags)
+    for seed, kind in enumerate(["midentropy", "zero_runs", "edges"]):
+        raw = make_raw(cfg, cfg.samples_per_rsi * 7 + bs + 2, kind, seed)
+        comp = encode(raw, cfg)
+        want = native.decode(comp, len(raw), cfg)
+        assert want[0] == AEC_OK
+        if not cfg.signed:
+            assert want[1] == raw
+        assert decode_buffer_tpu(comp, cfg, len(raw)) == want, kind
+        assert torch_decode(comp, cfg, len(raw)) == want, kind           # one
+        assert torch_decode(comp, cfg, len(raw), chunk_rsis=3) == want, kind
+
+
+def test_3byte_truncated_and_mem_error():
+    """A truncated 3-byte stream, and output sizes 1 and 2 bytes short of
+    a whole sample (MEM_ERROR), as decode_buffer_tpu and native.decode."""
+    cfg = Config(24, 64, 16, MSB | PP | B3)
+    raw = make_raw(cfg, cfg.samples_per_rsi * 6, seed=13)
+    comp = encode(raw, cfg)
+    for stream, out_size, status in ((comp[: len(comp) // 2], len(raw), None),
+                                     (comp, len(raw) - 1, AEC_MEM_ERROR),
+                                     (comp, len(raw) - 2, AEC_MEM_ERROR)):
+        want = native.decode(stream, out_size, cfg)
+        assert status is None or want[0] == status
+        assert decode_buffer_tpu(stream, cfg, out_size) == want
+        assert torch_decode(stream, cfg, out_size) == want
+        assert torch_decode(stream, cfg, out_size, chunk_rsis=2) == want
+    assert len(native.decode(comp[: len(comp) // 2], len(raw), cfg)[1]) \
+        < len(raw)
+
+
 def test_truncated_stream():
     raw = make_raw(SMALL, 64 * 32 * 4, seed=7)
     comp = encode(raw, SMALL)
@@ -176,25 +221,43 @@ def test_part_sink():
 
 
 def test_routing(monkeypatch):
-    """Small outputs, 3-byte samples and block sizes over 64 go to the
-    native decoder; a large output on a missing CUDA device raises."""
-    def refuse(*args):
-        raise AssertionError("routed to the device path")
+    """Small outputs and block sizes over 64 go to the native decoder;
+    3-byte samples take the device path (kernels 3 and 5, then kernel 4's
+    byte layout), other widths kernels 3 and 4; a large output on a
+    missing CUDA device raises."""
+    calls = []
+
+    def record(name, fn):
+        def recorded(*args):
+            calls.append(name)
+            return fn(*args)
+        return recorded
 
     raw = make_raw(SMALL, 3 * SMALL.samples_per_rsi, seed=5)
     comp = encode(raw, SMALL)
+    kernels = [(decode_cuda, "decode_blocks"),
+               (unpredict_cuda, "unpredict_swizzle"),
+               (unpredict_cuda, "unpredict_rsis"),
+               (unpredict_cuda, "samples_to_bytes")]
     with monkeypatch.context() as m:
-        m.setattr(decode_cuda, "decode_blocks", refuse)
-        m.setattr(unpredict_cuda, "unpredict_swizzle", refuse)
+        for mod, name in kernels:
+            m.setattr(mod, name, record(name, getattr(mod, name)))
         # under 16 MiB: native, whatever the device
         assert libaec_tpu_torch.decode_buffer_status(
             comp, SMALL, len(raw), device="cuda") == (AEC_OK, raw)
-        for cfg in (Config(24, 64, 16, MSB | PP | AEC_DATA_3BYTE),
-                    Config(16, 128, 16, MSB | PP | AEC_NOT_ENFORCE)):
+        assert calls == []
+        three = ["decode_blocks", "unpredict_rsis", "samples_to_bytes"]
+        for cfg, route in (
+                (Config(16, 128, 16, MSB | PP | AEC_NOT_ENFORCE), []),
+                (Config(24, 64, 16, MSB | PP | AEC_DATA_3BYTE), three),
+                (Config(24, 64, 16, MSB | AEC_DATA_3BYTE), three),
+                (SMALL, ["decode_blocks", "unpredict_swizzle"])):
+            calls.clear()
             r = make_raw(cfg, 3 * cfg.samples_per_rsi + 5, seed=6)
             c = encode(r, cfg)
             assert torch_decode(c, cfg, len(r)) == native.decode(c, len(r),
                                                                  cfg)
+            assert calls == route, cfg  # one chunk
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError):
             libaec_tpu_torch.decode_buffer_status(

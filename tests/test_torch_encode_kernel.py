@@ -4,7 +4,8 @@ The plain version (kernels/encode_cuda.encode_fields_plain, the torch
 field pipeline) must give the same block windows, block_bits and k_final
 as encode_pallas.encode_chunk_fields_pallas run in interpret mode, on the
 matrix of tests/test_pallas_encode.py (its signed third lives in
-test_torch_encode_kernel_signed.py, to keep each file short).  Tolerance
+test_torch_encode_kernel_signed.py, to keep each file short) and at
+AEC_NOT_ENFORCE block sizes that are not powers of two.  Tolerance
 zero: the codec is lossless.  The CUDA kernel is held against the plain
 version in test_torch_cuda.py.
 """
@@ -19,6 +20,7 @@ from test_pallas_encode import FLAG_SETS, gen_data  # noqa: E402
 
 from libaec_tpu import Config  # noqa: E402
 from libaec_tpu.constants import (  # noqa: E402
+    AEC_DATA_3BYTE,
     AEC_DATA_MSB,
     AEC_DATA_PREPROCESS,
     AEC_DATA_SIGNED,
@@ -88,6 +90,22 @@ def test_plain_kernel_matches_pallas(bps, flags):
     check_matrix_case(bps, flags)
 
 
+@pytest.mark.parametrize("bs,bps,flags,kind", [
+    (10, 16, AEC_DATA_MSB | AEC_DATA_PREPROCESS, "mixed"),
+    (24, 24, AEC_DATA_MSB | AEC_DATA_PREPROCESS | AEC_DATA_3BYTE, "low"),
+    (48, 13, AEC_DATA_SIGNED | AEC_DATA_PREPROCESS, "random"),
+])
+def test_plain_kernel_matches_pallas_not_enforce(bs, bps, flags, kind):
+    """AEC_NOT_ENFORCE block sizes that are not powers of two: the gate
+    takes every even size from 8 to 64, as encode_pallas.kernel_supported
+    does."""
+    rng = np.random.default_rng(bs)
+    cfg = Config(bps, bs, 64, flags | AEC_NOT_ENFORCE)
+    assert encode_cuda.kernel_supported(cfg)
+    assert encode_pallas.kernel_supported(cfg, 2)
+    run_pair(cfg, gen_data(rng, cfg, 2, kind), int(rng.integers(0, cfg.kmax)))
+
+
 def test_plain_kernel_masks_dirty_high_bits():
     """Storage bits above bits_per_sample are dropped at ingest: dirty
     bytes encode as their masked samples (the Pallas kernel masks its
@@ -106,5 +124,8 @@ def test_kernel_gate():
         Config(2, 64, 256, AEC_RESTRICTED))                 # id_len 1
     assert not encode_cuda.kernel_supported(
         Config(16, 64, 256, AEC_PAD_RSI))
+    for bs in (10, 24, 48):                                 # NOT_ENFORCE
+        assert encode_cuda.kernel_supported(
+            Config(16, bs, 256, AEC_NOT_ENFORCE))
     assert not encode_cuda.kernel_supported(
-        Config(16, 10, 256, AEC_NOT_ENFORCE))               # bs 10
+        Config(16, 128, 256, AEC_NOT_ENFORCE))              # bs 128
