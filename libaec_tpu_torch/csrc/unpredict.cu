@@ -50,49 +50,9 @@
 #include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 
+#include "unpredict_step.cuh"
+
 namespace {
-
-constexpr int SL = 128;  // samples per slab
-
-struct Params {
-    long long n_rsi;
-    int S, msb, pp, signed_path, sign_ext, words;
-    uint32_t xmax, med, sign_bit;
-};
-
-__device__ __forceinline__ uint32_t half_of(uint32_t d) {
-    return (d >> 1) + (d & 1);
-}
-
-__device__ __forceinline__ uint32_t zig_of(uint32_t d) {
-    return (d >> 1) ^ ~((d & 1) - 1);
-}
-
-__device__ __forceinline__ uint32_t step_unsigned(uint32_t last, uint32_t d,
-                                                  const Params& p) {
-    const uint32_t mask = (last & p.med) ? p.xmax : 0u;
-    return half_of(d) <= (mask ^ last) ? last + zig_of(d) : mask ^ d;
-}
-
-// int32 step of unpredict_pallas.py:119-127 on bit patterns (xmax is
-// sxmax's bit pattern)
-__device__ __forceinline__ uint32_t step_signed(uint32_t last, uint32_t d,
-                                                const Params& p) {
-    const bool neg = (int32_t)last < 0;
-    const uint32_t lim = neg ? p.xmax + last + 1u : p.xmax - last;
-    const uint32_t esc = neg ? d - p.xmax - 1u : p.xmax - d;
-    return half_of(d) <= lim ? last + zig_of(d) : esc;
-}
-
-// Sample s of an RSI from its delta dv and the sample before it.
-__device__ __forceinline__ uint32_t unpredict_one(uint32_t last, uint32_t dv,
-                                                  long long s,
-                                                  const Params& p) {
-    if (!p.pp) return dv;
-    if (s == 0) return p.sign_ext ? (dv ^ p.sign_bit) - p.sign_bit : dv;
-    return p.signed_path ? step_signed(last, dv, p)
-                         : step_unsigned(last, dv, p);
-}
 
 // The warp's slab of deltas, rows r0.. and columns s0.., into tin.
 __device__ __forceinline__ void stage_slab(uint32_t (*tin)[SL + 1],
@@ -131,24 +91,14 @@ __global__ void unpredict_swizzle_kernel(const uint32_t* __restrict__ d,
                 const uint32_t v = unpredict_one(last, tin[lane][i], s0 + i,
                                                  p);
                 last = v;
-#pragma unroll
-                for (int b = 0; b < BSZ; b++)
-                    mine[i * BSZ + b] =
-                        (uint8_t)(v >> (8 * (p.msb ? BSZ - 1 - b : b)));
+                put_sample<BSZ>(mine, i, v, p.msb);
             }
         }
         __syncwarp();
         const int nbytes = len * BSZ;
-        for (int r = 0; r < rows; r++) {
-            uint8_t* dst = out + (r0 + r) * row_bytes + s0 * BSZ;
-            if (p.words) {
-                uint32_t* dw = reinterpret_cast<uint32_t*>(dst);
-                for (int i = lane; i < nbytes / 4; i += 32) dw[i] = tout[r][i];
-            } else {
-                const uint8_t* sb = reinterpret_cast<const uint8_t*>(tout[r]);
-                for (int i = lane; i < nbytes; i += 32) dst[i] = sb[i];
-            }
-        }
+        for (int r = 0; r < rows; r++)
+            store_row(out + (r0 + r) * row_bytes + s0 * BSZ, tout[r], nbytes,
+                      p.words, lane);
         __syncwarp();
     }
 }

@@ -4,9 +4,10 @@ Twin of libaec_tpu/encode.py's device route.  Whole-RSI chunks of raw
 stream bytes go through two kernels (kernels/encode_cuda.py,
 kernels/merge_cuda.py); the warm-start k and the bit cursor modulo 8 stay
 in device tensors between chunks, so the host never waits between
-chunks.  The sub-RSI tail, small buffers and configs outside the kernel
-gate reuse the JAX package's host code (native encoder, numpy pipeline),
-which imports no JAX.
+chunks.  Small buffers and configs outside the kernel gate go to the
+port's native encoder (native/); the stream's short last RSI goes through
+the kernels' plain versions on the host (`encode_tail`).  Nothing here
+imports the JAX package.
 """
 from concurrent.futures import ThreadPoolExecutor
 from contextlib import nullcontext
@@ -14,21 +15,44 @@ from contextlib import nullcontext
 import numpy as np
 import torch
 
-from libaec_tpu import native as _native
-from libaec_tpu.backend import NUMPY
-from libaec_tpu.config import Config
-from libaec_tpu.constants import AEC_OK, AEC_STREAM_ERROR, AecStreamError
-from libaec_tpu.encode import (
-    AUTO_JAX_MIN_BYTES,
-    _OutputAssembler,
-    encode_blocks_core,
-)
-from libaec_tpu.ops import accessors as np_accessors
-
+from . import native as _native
+from .config import Config
+from .constants import AEC_OK, AEC_STREAM_ERROR, AecStreamError
 from .kernels import encode_cuda, merge_cuda
+from .kernels.encode_cuda import worst_case_bits_per_block  # noqa: F401
+from .ops import bitpack
 from .ops.u32 import words_to_u8
 
 MAX_INFLIGHT = 4  # chunks queued on the device before the oldest is fetched
+# Buffers at least this large take the device route by default
+# (libaec_tpu/encode.py:310).
+AUTO_JAX_MIN_BYTES = 4 << 20
+
+
+class _OutputAssembler:
+    """Accumulates chunk outputs, OR-merging the shared boundary byte
+    (libaec_tpu/encode.py:352)."""
+
+    def __init__(self):
+        self.buf = bytearray()
+        self.bits = 0
+
+    def append(self, chunk_bytes, total_bits):
+        chunk = np.asarray(chunk_bytes)
+        bit0 = self.bits % 8
+        if bit0 and len(self.buf):
+            self.buf[-1] |= int(chunk[0])
+            self.buf += chunk[1:].tobytes()
+        else:
+            self.buf += chunk.tobytes()
+        self.bits += total_bits - bit0
+
+    def finish(self):
+        if self.bits == 0:
+            # empty input: the reference still flushes one zero byte
+            # (encode.c:686-695, observed behaviour)
+            return b"\x00"
+        return bytes(self.buf)
 
 
 def encode_chunk(cfg, raw_u8, k_dev, bit0_dev):
@@ -53,6 +77,32 @@ def words_to_stream_bytes(words, total_bits):
     nbytes = (total_bits + 7) // 8
     nwords = (4 + nbytes + 3) // 4
     return words_to_u8(words[:nwords])[4:4 + nbytes]
+
+
+def encode_tail(cfg, raw_tail, k_init, bit0):
+    """The stream's short last RSI, on the host: (stream bytes as a numpy
+    uint8 array, total_bits incl. bit0).
+
+    raw_tail: numpy uint8 bytes of the rem < samples_per_rsi samples after
+    the last whole RSI; the last block is filled with repeats of the last
+    sample (encode.c:676-685).  k_init is the incoming warm-start k, bit0
+    the stream's bit cursor modulo 8.  This runs the kernels' plain
+    versions on CPU tensors (the field pipeline of
+    encode_cuda.encode_fields_plain with nb < rsi blocks, then
+    ops/bitpack.merge_windows): at most one RSI per stream, which the JAX
+    package also encodes off the device (libaec_tpu/encode.py:476-488)."""
+    bs, bsz = cfg.block_size, cfg.bytes_per_sample
+    rem = len(raw_tail) // bsz
+    nb = -(-rem // bs)
+    last = raw_tail[(rem - 1) * bsz:rem * bsz]
+    raw = np.concatenate([raw_tail[:rem * bsz], np.tile(last, nb * bs - rem)])
+    win, block_bits, _ = encode_cuda.encode_fields_plain(
+        cfg, torch.from_numpy(raw), torch.tensor([k_init]), nb=nb)
+    nwords = merge_cuda.word_count(cfg, nb, encode_cuda.window_words(cfg) - 1)
+    words, tail = bitpack.merge_windows(
+        win, block_bits, torch.tensor([bit0]), nwords)
+    total_bits = int(tail[0])
+    return words_to_stream_bytes(words, total_bits), total_bits
 
 
 class _Stager:
@@ -142,19 +192,15 @@ def encode_buffer(data, cfg: Config, device="cuda", force_device=False,
     Buffers of at least 4 MiB whose config passes the kernel gate run on
     `device`; `force_device=True` drops the size threshold (the tests use
     it to reach the device path at small sizes, like the JAX package's
-    backend=).  Everything else goes to the native encoder.  A device that
-    is missing raises; nothing falls back from the device path.
+    backend=).  Everything else goes to the native encoder (a native
+    library that cannot be built raises).  A device that is missing raises;
+    nothing falls back from the device path.
 
     Trailing bytes short of a sample are ignored; a trailing partial RSI
     repeats its last sample (encode.c:676-685).  out_size, if given, is
     the caller's capacity: a longer stream raises AecStreamError."""
     if not _use_device(cfg, len(data), force_device):
-        res = _native.encode(bytes(data), cfg)
-        if res is None:  # no host toolchain: the JAX package's numpy path
-            from libaec_tpu.encode import encode_buffer as np_encode
-
-            return np_encode(data, cfg, backend=NUMPY, out_size=out_size)
-        status, comp = res
+        status, comp = _native.encode(bytes(data), cfg)
         if status != 0:
             raise RuntimeError(f"native encoder failed with status {status}")
         return _check_capacity(comp, out_size)
@@ -208,16 +254,8 @@ def encode_buffer(data, cfg: Config, device="cuda", force_device=False,
                 f.result()
         k_final = int(k_dev)
     if rem:
-        nb_tail = -(-rem // cfg.block_size)
-        tail = np_accessors.bytes_to_samples(
-            np, raw[n_full * S * bsz:], bsz, cfg.msb, cfg.mask)
-        pad = nb_tail * cfg.block_size - rem
-        if pad:
-            tail = np.concatenate([tail, np.full(pad, tail[-1], np.uint32)])
-        packed, bits, _ = encode_blocks_core(
-            NUMPY, cfg, tail.reshape(1, nb_tail * cfg.block_size),
-            nb_tail, k_final, out.bits % 8)
-        out.append(packed, bits)
+        out.append(*encode_tail(cfg, raw[n_full * S * bsz:], k_final,
+                                out.bits % 8))
     return _check_capacity(out.finish(), out_size)
 
 

@@ -1,12 +1,12 @@
 """Build and load the CUDA kernels of libaec_tpu_torch/csrc.
 
-On first use, every `csrc/*.cu` is compiled by its own `nvcc` for sm_90a
-(all started together), and the objects are linked into one shared
-library with a plain C interface, bound with ctypes.  The sources include
-no PyTorch header, so a build takes seconds.  The library lands
-in `build/libaec_tpu_torch/` at the repository root, named by a hash of
-the sources and flags, so an edited source rebuilds and an unchanged one
-loads at once.
+On first use, every `csrc/*.cu` (they share `csrc/*.cuh`) is compiled by
+its own `nvcc` for sm_90a (all started together), and the objects are
+linked into one shared library with a plain C interface, bound with
+ctypes.  The sources include no PyTorch header, so a build takes seconds.
+The library lands in `build/libaec_tpu_torch/` at the repository root,
+named by a hash of the sources, headers and flags, so an edited source
+rebuilds and an unchanged one loads at once.
 
 Every C entry point returns `cudaGetLastError()` after its launches;
 `check()` raises if that is not 0.
@@ -45,6 +45,10 @@ SIGNATURES = {
     # deltas, out, n_rsi, S, signed_path, sign_ext, xmax, med, sign_bit,
     # stream
     "aec_unpredict_rsis": [P, P, LL, I, I, I, U, U, U, P],
+    # win, fs_bit, lsb_rel, meta, ref_sample, out, n_rsi, rsi, wf, bs, bps,
+    # bsz, msb, pp, signed_path, sign_ext, xmax, med, sign_bit, stream
+    "aec_decode_fused": [P, P, P, P, P, P, LL, I, I, I, I, I, I, I, I, I,
+                         U, U, U, P],
 }
 
 _lock = threading.Lock()
@@ -68,7 +72,8 @@ def _sources():
 
 def library_path():
     h = hashlib.sha256(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
-    for src in _sources():
+    # the headers too: an edited .cuh must not load a stale library
+    for src in sorted((*_sources(), *CSRC.glob("*.cuh"))):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_DIR / f"libaec_tpu_torch_{h.hexdigest()[:16]}.so"

@@ -10,8 +10,6 @@ route only for a CPU tensor; a CUDA tensor launches the kernel or raises.
 """
 import torch
 
-from libaec_tpu.encode import worst_case_bits_per_block
-
 from ..ops import accessors, bitpack, fields, options, preprocess, zeroruns
 from ..ops.u32 import MASK32, to_bits
 from . import _build
@@ -27,19 +25,33 @@ def kernel_supported(cfg):
             and not cfg.pad_rsi)
 
 
+def worst_case_bits_per_block(cfg):
+    """Upper bound on one block's emitted bits: id + reference sample +
+    the larger of the uncompressed payload and a zero-run FS field (a run
+    emitted mid-segment can span 63 blocks: fsval 63, a 64-bit unary
+    field, which exceeds block_size * bps for small blocks of narrow
+    samples).  As libaec_tpu/encode.py:112."""
+    return cfg.id_len + 1 + cfg.bits_per_sample + max(
+        cfg.block_size * cfg.bits_per_sample, 64)
+
+
 def window_words(cfg):
     """W0: words per block window, front pad word included."""
     local_words = (worst_case_bits_per_block(cfg) + 31) // 32 + 1
     return local_words + 1
 
 
-def encode_fields_plain(cfg, raw_u8, k_init):
-    """Plain version of the kernel; same contract as `encode_fields`."""
-    bs, S = cfg.block_size, cfg.samples_per_rsi
+def encode_fields_plain(cfg, raw_u8, k_init, nb=None):
+    """Plain version of the kernel; same contract as `encode_fields`.
+
+    nb is the number of blocks per RSI: cfg.rsi, or fewer for the short
+    last RSI of a stream (the host tail of encode.encode_buffer)."""
+    bs = cfg.block_size
+    nb = cfg.rsi if nb is None else nb
+    S = nb * bs
     x = accessors.bytes_to_samples(raw_u8, cfg.bytes_per_sample, cfg.msb,
                                    cfg.mask)
     n_rsi = x.shape[0] // S
-    nb = cfg.rsi
     NB = n_rsi * nb
     x = x.reshape(n_rsi, S)
     if cfg.preprocess:

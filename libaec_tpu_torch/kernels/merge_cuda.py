@@ -8,10 +8,9 @@ for CPU tensors; CUDA tensors launch the kernel or raise.
 """
 import torch
 
-from libaec_tpu.encode import worst_case_bits_per_block
-
 from ..ops import bitpack
 from . import _build
+from .encode_cuda import worst_case_bits_per_block
 
 launches = 0
 

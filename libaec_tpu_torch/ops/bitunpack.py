@@ -18,12 +18,17 @@ import sys
 import numpy as np
 import torch
 
-from libaec_tpu.decode import WF_BUCKETS
-
 from . import u32
 from .u32 import MASK32, from_bits, to_bits
 
 KIND_SE, KIND_SPLIT, KIND_UNCOMP = 1, 2, 3  # meta & 3; 0 is a zero block
+
+# Per-chunk window-width buckets, in words (libaec_tpu/decode.py:178).  The
+# worst-case window (window_words) covers an uncompressed payload, but
+# typical data's largest payload is a split block of a few words; sizing the
+# windows from the chunk's largest span cuts the fill, the H2D copy and the
+# kernel's reads by the same factor.
+WF_BUCKETS = (6, 10, 18)
 
 
 def window_words(cfg):

@@ -1,8 +1,9 @@
 """libaec_tpu_torch's CUDA kernels against their plain versions, on the card.
 
 Every test here needs an NVIDIA GPU (`cuda` marker) and skips without
-one: a CUDA kernel has no CPU mode.  The file imports no JAX, so it also
-runs on a GPU machine without it:
+one: a CUDA kernel has no CPU mode.  The file imports neither JAX nor the
+JAX package (the bit-exact reference is libaec_tpu_torch.native), so it
+also runs on a GPU machine without them:
 
     python -m pytest tests/test_torch_cuda.py -q
 
@@ -14,10 +15,10 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from gen import KINDS, gen_values, pack_samples  # noqa: E402
+from gen import KINDS, gen_values  # noqa: E402
 
 import libaec_tpu_torch  # noqa: E402
-from libaec_tpu import native  # noqa: E402
+from chip_smoke import pack_samples  # noqa: E402
 from libaec_tpu_torch import (  # noqa: E402
     AEC_DATA_3BYTE,
     AEC_DATA_MSB,
@@ -25,10 +26,12 @@ from libaec_tpu_torch import (  # noqa: E402
     AEC_DATA_SIGNED,
     AEC_NOT_ENFORCE,
     Config,
+    native,
 )
-from libaec_tpu.decode import WF_BUCKETS, scan_record_arrays  # noqa: E402
+from libaec_tpu_torch.decode import WF_BUCKETS, scan_record_arrays  # noqa: E402
 from libaec_tpu_torch.kernels import (  # noqa: E402
     decode_cuda,
+    decode_fused_cuda,
     encode_cuda,
     merge_cuda,
     unpredict_cuda,
@@ -336,3 +339,146 @@ def test_decode_sweep_widths_and_layouts(dev, bps):
         assert decode_cuda.launches > before[0], cfg
         assert (unpredict_cuda.rsis_launches > before[1]) == (
             cfg.bytes_per_sample == 3 and cfg.preprocess), cfg
+
+
+FUSED_CONFIGS = [cfg for cfg in DECODE_CONFIGS if cfg is not U24] + [
+    Config(16, 10, 256, AEC_DATA_MSB | AEC_DATA_PREPROCESS
+           | AEC_NOT_ENFORCE),                 # 12 blocks a slab
+    Config(8, 10, 3, AEC_NOT_ENFORCE),         # rows of 30 bytes
+    Config(32, 48, 8, AEC_DATA_SIGNED | AEC_DATA_PREPROCESS
+           | AEC_NOT_ENFORCE),                 # 2 blocks a slab
+    Config(1, 8, 16, AEC_DATA_SIGNED | AEC_DATA_PREPROCESS),
+]
+FUSED_IDS = DECODE_IDS[:-1] + ["bs10", "u8bs10", "s32bs48", "s1"]
+
+
+@pytest.mark.parametrize("cfg", FUSED_CONFIGS, ids=FUSED_IDS)
+@pytest.mark.parametrize("n_rsi", [1, 24, 33, 77])
+def test_fused_kernel_matches_plain(dev, cfg, n_rsi):
+    """Kernel 6 against its plain version, kernels 3 + 4 and native.decode,
+    at the chunk's bucket width and every wider width the decode path can
+    choose; RSI counts below, at and across the 32-RSI group."""
+    raw = chunk(cfg, n_rsi, cfg.bits_per_sample + n_rsi).numpy().tobytes()
+    comp, recs, bucket = scanned(cfg, raw)
+    wf_max = bitunpack.window_words(cfg)
+    want = None
+    for wf in sorted({w for w in (*WF_BUCKETS, wf_max)
+                      if bucket <= w <= wf_max}):
+        recs["win"] = native.fill_windows(comp, recs["fs_off"],
+                                          recs["meta"], wf)
+        args = [u32_to_bits(a) for a in scan_record_arrays(recs)]
+        if want is None:
+            want = decode_fused_cuda.decode_unpredict_swizzle_plain(
+                cfg, *args, n_rsi)
+            assert want.numpy().tobytes() == native.decode(
+                comp, len(raw), cfg)[1]
+        before = decode_fused_cuda.launches
+        on_dev = [a.to(dev) for a in args]
+        got = decode_fused_cuda.decode_unpredict_swizzle(cfg, *on_dev, n_rsi)
+        assert decode_fused_cuda.launches == before + 1
+        assert torch.equal(got.cpu(), want), wf
+        two = unpredict_cuda.unpredict_swizzle(
+            cfg, decode_cuda.decode_blocks(cfg, *on_dev).view(
+                n_rsi, cfg.samples_per_rsi))
+        assert torch.equal(got, two), wf
+
+
+@pytest.mark.parametrize("n_rsi", [3000, 5000, 10000])
+def test_fused_kernel_group_sizes(dev, n_rsi):
+    """Many short RSIs: kernel 6 gives a thread block 8, 16 or 32 of them
+    instead of 4 once the chunk has more than the card holds at once."""
+    cfg = Config(8, 8, 2, AEC_DATA_PREPROCESS)
+    raw = chunk(cfg, n_rsi, n_rsi).numpy().tobytes()
+    comp, recs, wf = scanned(cfg, raw)
+    recs["win"] = native.fill_windows(comp, recs["fs_off"], recs["meta"], wf)
+    args = [u32_to_bits(a).to(dev) for a in scan_record_arrays(recs)]
+    got = decode_fused_cuda.decode_unpredict_swizzle(cfg, *args, n_rsi)
+    assert got.cpu().numpy().tobytes() == native.decode(comp, len(raw),
+                                                        cfg)[1]
+    want = decode_fused_cuda.decode_unpredict_swizzle_plain(
+        cfg, *(a.cpu() for a in args), n_rsi)
+    assert torch.equal(got.cpu(), want)
+
+
+def test_fused_kernel_refuses(dev):
+    """Outside its gate, and on tensors it does not take, kernel 6's
+    wrapper raises; nothing falls back."""
+    win = torch.zeros(8, 6, dtype=torch.int32, device=dev)
+    rec = torch.zeros(8, dtype=torch.int32, device=dev)
+    cfg = Config(16, 64, 4, AEC_DATA_PREPROCESS)
+    out = decode_fused_cuda.decode_unpredict_swizzle(cfg, win, rec, rec, rec,
+                                                     rec, 2)
+    assert out.shape == (2, cfg.rsi_len_bytes) and not out.any()
+    with pytest.raises(ValueError):
+        decode_fused_cuda.decode_unpredict_swizzle(
+            Config(24, 64, 4, AEC_DATA_3BYTE), win, rec, rec, rec, rec, 2)
+    with pytest.raises(ValueError):
+        decode_fused_cuda.decode_unpredict_swizzle(
+            cfg, win, rec.cpu(), rec, rec, rec, 2)
+    with pytest.raises(ValueError):
+        decode_fused_cuda.decode_unpredict_swizzle(
+            cfg, win.to(torch.int64), rec, rec, rec, rec, 2)
+    with pytest.raises(ValueError):
+        decode_fused_cuda.decode_unpredict_swizzle(
+            cfg, win.t().contiguous().t(), rec, rec, rec, rec, 2)
+
+
+@pytest.mark.parametrize("kind", ["lowentropy", "midentropy", "zero_runs",
+                                  "random"])
+def test_decode_buffer_fused_matches_native(dev, kind):
+    """The decode slice on the one-kernel route, in several chunks, whole
+    and truncated, and with an output size short of a whole sample:
+    kernel 6 once per chunk, kernels 3 and 4 not at all."""
+    rng = np.random.default_rng(23)
+    vals = gen_values(rng, 40 * BENCH.samples_per_rsi + 999, 16, False, kind)
+    data = pack_samples(vals, 16, BENCH.flags)
+    comp = native.encode(data, BENCH)[1]
+
+    def decode(stream, out_size):
+        return libaec_tpu_torch.decode_buffer_status(
+            stream, BENCH, out_size, device=dev, force_device=True,
+            chunk_rsis=7, fused=True)
+
+    before = (decode_fused_cuda.launches, decode_cuda.launches,
+              unpredict_cuda.launches)
+    assert decode(comp, len(data)) == (0, data)
+    assert (decode_fused_cuda.launches - before[0], decode_cuda.launches,
+            unpredict_cuda.launches) == (6, *before[1:])
+    for stream, out_size in ((comp[: len(comp) // 2 + 3], len(data)),
+                             (comp, len(data) - 1)):
+        assert decode(stream, out_size) == native.decode(stream, out_size,
+                                                         BENCH)
+
+
+@pytest.mark.parametrize("fused", [False, True], ids=["two-kernel", "fused"])
+@pytest.mark.parametrize("cfg", [BENCH, Config(24, 64, 16, U24.flags),
+                                 Config(8, 10, 3, AEC_NOT_ENFORCE)],
+                         ids=["bench16", "u24", "u8bs10"])
+def test_decode_buffers_matches_native(dev, cfg, fused):
+    """Many streams through shared device chunks: whole, empty, shorter
+    than one RSI, truncated, with an odd out_size; each result is
+    native.decode's, and the launches are fewer than the streams."""
+    rng = np.random.default_rng(29 + cfg.bits_per_sample)
+    comps, sizes = [], []
+    for i in range(24):
+        n = rng.integers(1, 6) * cfg.samples_per_rsi + int(rng.integers(0, 99))
+        kind = ("lowentropy", "midentropy", "zero_runs")[i % 3]
+        raw = pack_samples(gen_values(rng, int(n), cfg.bits_per_sample,
+                                      cfg.signed, kind),
+                           cfg.bits_per_sample, cfg.flags)
+        comps.append(native.encode(raw, cfg)[1])
+        sizes.append(len(raw))
+    comps[2] = comps[2][: len(comps[2]) // 2]
+    sizes[3] -= 1
+    comps += [b"", comps[0]]
+    sizes += [cfg.rsi_len_bytes, cfg.rsi_len_bytes // 2]
+    counters = [(decode_cuda, "launches"), (decode_fused_cuda, "launches")]
+    before = [getattr(m, a) for m, a in counters]
+    got = libaec_tpu_torch.decode_buffers(comps, cfg, sizes, device=dev,
+                                          chunk_rsis=16, fused=fused)
+    moved = [getattr(m, a) - b for (m, a), b in zip(counters, before)]
+    for i, (comp, size) in enumerate(zip(comps, sizes)):
+        assert got[i] == native.decode(comp, size, cfg), i
+    one_kernel = fused and cfg.bytes_per_sample != 3
+    assert 0 < moved[one_kernel] < len(comps)
+    assert moved[not one_kernel] == 0

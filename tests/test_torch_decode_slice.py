@@ -9,7 +9,9 @@ streams, on an output size short of a whole sample, on zero runs, on
 native decoder: it
 decodes sign-extended, so it need not round-trip byte for byte (ROADMAP
 C.4); tests/test_decode_tpu.py holds decode_buffer_tpu against the
-native decoder on the same configs.  Tolerance zero.
+native decoder on the same configs.  Every case runs once more on the
+one-kernel route (kernel 6's plain version), opted into through
+LIBAEC_TPU_FUSED_DECODE.  Tolerance zero.
 """
 import numpy as np
 import pytest
@@ -30,11 +32,15 @@ from libaec_tpu.constants import (  # noqa: E402
     AEC_OK,
     AEC_PAD_RSI,
     AEC_RESTRICTED,
-    AecMemError,
 )
 from libaec_tpu.decode import DEVICE_DECODE_MIN_BYTES  # noqa: E402
 from libaec_tpu.decode import decode_buffer_tpu  # noqa: E402
-from libaec_tpu_torch.kernels import decode_cuda, unpredict_cuda  # noqa: E402
+from libaec_tpu_torch import AecMemError  # noqa: E402
+from libaec_tpu_torch.kernels import (  # noqa: E402
+    decode_cuda,
+    decode_fused_cuda,
+    unpredict_cuda,
+)
 
 PP, MSB, SGN = AEC_DATA_PREPROCESS, AEC_DATA_MSB, AEC_DATA_SIGNED
 SMALL = Config(16, 64, 32, MSB | PP)  # the bench layout, 32-block RSIs
@@ -265,3 +271,77 @@ def test_routing(monkeypatch):
         with pytest.raises(RuntimeError):
             libaec_tpu_torch.decode_buffer_status(
                 comp, SMALL, len(raw), device="cuda", force_device=True)
+
+
+def _cases(fn):
+    """The keyword arguments of every case of a parametrised test."""
+    cases = [{}]
+    for mark in getattr(fn, "pytestmark", []):
+        if mark.name == "parametrize":
+            names = [n.strip() for n in mark.args[0].split(",")]
+            cases = [{**c, **dict(zip(names, v if len(names) > 1 else (v,)))}
+                     for c in cases for v in mark.args[1]]
+    return cases
+
+
+FUSED_CASES = [(fn, kwargs) for fn in (
+    test_slice_matches_jax_and_native, test_slice_configs_match_native,
+    test_slice_other_layouts_match_native,
+    test_slice_3byte_matches_jax_and_native,
+    test_3byte_truncated_and_mem_error, test_truncated_stream,
+    test_mem_error_parity, test_chunked_scan_resume, test_zero_runs,
+    test_part_sink) for kwargs in _cases(fn)]
+THREE_BYTE = (test_slice_3byte_matches_jax_and_native,
+              test_3byte_truncated_and_mem_error)
+
+
+@pytest.mark.parametrize(
+    "fn,kwargs", FUSED_CASES,
+    ids=["-".join([fn.__name__[5:], *map(str, kwargs.values())])
+         for fn, kwargs in FUSED_CASES])
+def test_fused_route(monkeypatch, fn, kwargs):
+    """Every case above on the one-kernel route: kernel 6 replaces
+    kernels 3 and 4 wherever its gate passes; 3-byte samples keep the
+    route of kernels 3, 5 and 4."""
+    calls = []
+    inner = decode_fused_cuda.decode_unpredict_swizzle
+
+    def counted(*a):
+        calls.append(a[0])
+        return inner(*a)
+
+    monkeypatch.setattr(decode_fused_cuda, "decode_unpredict_swizzle",
+                        counted)
+    monkeypatch.setattr(unpredict_cuda, "unpredict_swizzle", None)
+    monkeypatch.setenv("LIBAEC_TPU_FUSED_DECODE", "1")
+    fn(**kwargs)
+    assert bool(calls) == (fn not in THREE_BYTE)
+
+
+def test_fused_argument(monkeypatch):
+    """fused=True and fused=False override the environment; a config
+    outside kernel 6's gate takes the route of kernels 3, 5 and 4."""
+    raw = make_raw(SMALL, 3 * SMALL.samples_per_rsi + 5, seed=6)
+    comp = encode(raw, SMALL)
+    want = native.decode(comp, len(raw), SMALL)
+    calls = []
+    for mod, name in ((decode_fused_cuda, "decode_unpredict_swizzle"),
+                      (decode_cuda, "decode_blocks")):
+        def recorded(*a, _name=name, _fn=getattr(mod, name)):
+            calls.append(_name)
+            return _fn(*a)
+        monkeypatch.setattr(mod, name, recorded)
+    assert torch_decode(comp, SMALL, len(raw), fused=True) == want
+    assert calls == ["decode_unpredict_swizzle"]
+    calls.clear()
+    monkeypatch.setenv("LIBAEC_TPU_FUSED_DECODE", "1")
+    assert torch_decode(comp, SMALL, len(raw), fused=False) == want
+    assert calls == ["decode_blocks"]
+    calls.clear()
+    cfg = Config(24, 64, 16, MSB | PP | AEC_DATA_3BYTE)
+    assert not decode_fused_cuda.fused_supported(cfg)
+    r = make_raw(cfg, 3 * cfg.samples_per_rsi, seed=6)
+    c = encode(r, cfg)
+    assert torch_decode(c, cfg, len(r), fused=True) == native.decode(
+        c, len(r), cfg)
+    assert calls == ["decode_blocks"]

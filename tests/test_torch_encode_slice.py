@@ -32,8 +32,8 @@ from libaec_tpu.constants import (  # noqa: E402
     AEC_OK,
     AEC_PAD_RSI,
     AEC_STREAM_ERROR,
-    AecStreamError,
 )
+from libaec_tpu_torch import AecStreamError  # noqa: E402
 
 ROOT = Path(__file__).resolve().parent.parent
 BENCH = libaec_tpu.Config(16, 64, 256, AEC_DATA_MSB | AEC_DATA_PREPROCESS)
