@@ -6,9 +6,10 @@
 Builds the port's native host library (g++) and the CUDA kernels of
 libaec_tpu_torch/csrc (nvcc), holds each of the six kernels bit-exactly
 against its plain PyTorch version on the card at the chunk shape the main
-path launches (kernels 4 and 5, the inverse predictor, also on the deltas of
-smooth, rough and random samples), then drives the port's main paths: at two configs, 16-bit
-samples (the bench config) and 24-bit samples stored in 3 bytes,
+path launches (kernels 4, 5 and 6 also on smooth, rough and random samples;
+kernel 1 also at the shapes of its k chain, its launches timed apart), then
+drives the port's main paths: at two configs, 16-bit samples (the bench
+config) and 24-bit samples stored in 3 bytes,
 libaec_tpu_torch.encode_buffer over two 256 MiB buffers, held against the
 native encoder and a native decode round trip, and
 libaec_tpu_torch.decode_buffer_status over the two streams it made, held
@@ -115,19 +116,28 @@ def chunk_data(cfg, n_rsi, seed, dirty=False):
     return pack_samples(vals, bps, cfg.flags)
 
 
-def check_encode_kernel(name, cfg, n_rsi, device, dirty=False):
+def check_encode_kernel(name, cfg, n_rsi, device, dirty=False, k_init=3,
+                        passes=False):
+    """Kernel 1 against its plain version on n_rsi RSIs of every
+    tests/gen.py kind; with `passes`, also the device time of each of its
+    launches."""
     from libaec_tpu_torch.kernels import encode_cuda
 
     raw = torch.from_numpy(np.frombuffer(
         chunk_data(cfg, n_rsi, seed=n_rsi + cfg.bits_per_sample, dirty=dirty),
         np.uint8).copy()).to(device)
-    k0 = torch.tensor([min(3, cfg.kmax)], dtype=torch.int32, device=device)
+    k0 = torch.tensor([min(k_init, cfg.kmax)], dtype=torch.int32,
+                      device=device)
     got, ms = timed(lambda: encode_cuda.encode_fields(cfg, raw, k0), 20)
+    if passes:
+        pass_times(f"encode_fields {name}",
+                   lambda: encode_cuda.encode_fields(cfg, raw, k0))
     want, plain_ms = timed(
         lambda: encode_cuda.encode_fields_plain(cfg, raw, k0), 3, warmup=1)
     err = max(max_abs_err(g, w) for g, w in zip(got, want))
     print(f"kernel encode_fields [{name}] n_rsi={n_rsi} "
-          f"NB={got[0].shape[0]} W0={got[0].shape[1]} k_final={int(got[2])} "
+          f"NB={got[0].shape[0]} tiles={-(-got[0].shape[0] // 64)} "
+          f"W0={got[0].shape[1]} k_init={int(k0)} k_final={int(got[2])} "
           f"max_abs_err={err} ms={ms:.4f} plain_ms={plain_ms:.4f}")
     if err:
         raise AssertionError(f"encode kernel differs from plain ({name})")
@@ -272,6 +282,57 @@ def check_fused_kernel(name, cfg, raw, comp, args_by_wf, device):
             raise AssertionError(f"fused kernel differs ({name}, Wf {wf})")
         rows.append((wf, err, ms, plain_ms, two_ms))
     return rows
+
+
+def check_fused_inputs(name, cfg, n_rsi, device, seed):
+    """Kernel 6 at the decode path's chunk on `midentropy` and `random`
+    samples (tests/gen.py): rows whose scan takes repairs, and rows that
+    end in the serial walk.  Each at the chunk's own window width,
+    against the serial plain version (one timed run), the plain version
+    that follows the kernel's scan over its slabs, the samples themselves
+    and kernels 3 + 4.  Returns the max_abs_err."""
+    import gen
+
+    from libaec_tpu_torch import native
+    from libaec_tpu_torch.decode import scan_record_arrays
+    from libaec_tpu_torch.kernels import (decode_cuda, decode_fused_cuda,
+                                          unpredict_cuda)
+    from libaec_tpu_torch.ops.u32 import u32_to_bits
+
+    rng = np.random.default_rng(seed)
+    S = cfg.samples_per_rsi
+    worst = 0
+    for kind in ("midentropy", "random"):
+        raw = pack_samples(gen.gen_values(
+            rng, n_rsi * S, cfg.bits_per_sample, cfg.signed, kind),
+            cfg.bits_per_sample, cfg.flags)
+        comp, recs, wf = scanned_chunk(cfg, raw)
+        recs["win"] = native.fill_windows(comp, recs["fs_off"], recs["meta"],
+                                          wf)
+        args = [u32_to_bits(a).to(device) for a in scan_record_arrays(recs)]
+        got, ms = timed(lambda: decode_fused_cuda.decode_unpredict_swizzle(
+            cfg, *args, n_rsi), 20)
+        want, plain_ms = timed(
+            lambda: decode_fused_cuda.decode_unpredict_swizzle_plain(
+                cfg, *args, n_rsi), 1, warmup=0)
+        scan, scan_ms = timed(
+            lambda: decode_fused_cuda.decode_unpredict_swizzle_scan_plain(
+                cfg, *args, n_rsi), 1, warmup=0)
+        two, two_ms = timed(lambda: unpredict_cuda.unpredict_swizzle(
+            cfg, decode_cuda.decode_blocks(cfg, *args).view(n_rsi, S)), 20)
+        err = max_abs_err(got, want)
+        input_ok = got.cpu().numpy().tobytes() == raw
+        scan_ok = torch.equal(scan, want)
+        print(f"kernel decode_fused inputs [{name} {kind}] n_rsi={n_rsi} "
+              f"Wf={wf} max_abs_err={err} identical_to_input={input_ok} "
+              f"identical_to_kernels_3_4={torch.equal(got, two)} "
+              f"ms={ms:.4f} plain_ms={plain_ms:.4f} "
+              f"kernels_3_4_ms={two_ms:.4f} | scan plain "
+              f"identical={scan_ok} ms={scan_ms:.4f}")
+        if err or not input_ok or not scan_ok or not torch.equal(got, two):
+            raise AssertionError(f"fused kernel differs ({name} {kind})")
+        worst = max(worst, err)
+    return worst
 
 
 def check_unpredict_kernel(name, cfg, raw, deltas, comp, device):
@@ -721,10 +782,10 @@ def host_breakdown(label, fn, spent):
     print(f"host [{label}] wall_ms={wall_ms:.3f} {steps}")
 
 
-def profile_call(label, fn):
-    """Device time of one main-path call, fn(), under torch.profiler: the
-    union of the intervals of kernels, copies and memsets over all
-    streams, and the device's idle share of the call's wall time."""
+def device_spans(fn):
+    """fn() under torch.profiler: its wall milliseconds and the (start,
+    end, name) of every kernel, copy and memset on the device, in
+    microseconds, sorted by start."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
@@ -736,9 +797,17 @@ def profile_call(label, fn):
         path = Path(tmp) / "trace.json"
         prof.export_chrome_trace(str(path))
         events = json.loads(path.read_text())["traceEvents"]
-    spans = sorted((e["ts"], e["ts"] + e["dur"], e["name"]) for e in events
-                   if e.get("ph") == "X" and e.get("cat") in
-                   ("kernel", "gpu_memcpy", "gpu_memset"))
+    return wall_ms, sorted(
+        (e["ts"], e["ts"] + e["dur"], e["name"]) for e in events
+        if e.get("ph") == "X" and e.get("cat") in
+        ("kernel", "gpu_memcpy", "gpu_memset"))
+
+
+def profile_call(label, fn):
+    """Device time of one main-path call, fn(), under torch.profiler: the
+    union of the intervals of kernels, copies and memsets over all
+    streams, and the device's idle share of the call's wall time."""
+    wall_ms, spans = device_spans(fn)
     if not spans:
         print(f"profile [{label}] wall_ms={wall_ms:.3f} "
               f"device time: not measured")
@@ -758,6 +827,31 @@ def profile_call(label, fn):
     print(f"profile [{label}] wall_ms={wall_ms:.3f} "
           f"device_busy_ms={busy_ms:.3f} "
           f"idle_share={1 - busy_ms / wall_ms:.4f} | {top}")
+
+
+def pass_times(label, fn, reps=20):
+    """Mean device milliseconds of each kernel fn() launches, by the
+    kernel's name, over `reps` calls in one torch.profiler trace (after
+    one untimed call), in launch order; prints them and returns
+    {name: ms}."""
+    def many():
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+
+    fn()
+    torch.cuda.synchronize()
+    _, spans = device_spans(many)
+    by_name = defaultdict(float)
+    for start, end, name in spans:
+        short = name.replace("(anonymous namespace)::", "").split("(")[0]
+        by_name[short.replace("void ", "").split("<")[0]] += end - start
+    out = {name: us / 1e3 / reps for name, us in by_name.items()}
+    print(f"passes [{label}] reps={reps} "
+          + (" ".join(f"{name}_ms={ms:.4f}" for name, ms in out.items())
+             or "device time: not measured")
+          + f" sum_ms={sum(out.values()):.4f}")
+    return out
 
 
 def main():
@@ -804,23 +898,35 @@ def main():
     cfg24 = Config(24, 64, 256, msb | pp | b3)  # 24-bit samples in 3 bytes
     bench, err1, ms1, plain1 = check_encode_kernel(
         "bench 16-bit MSB pp bs64 rsi256", bench_cfg,
-        default_rsis_per_chunk(bench_cfg), device)
-    checks = [
+        default_rsis_per_chunk(bench_cfg), device, passes=True)
+    bs10_cfg = Config(16, 10, 256, msb | pp | ne)
+    checks = [  # (name, config, RSIs or None for the path's chunk, dirty,
+        #          k_init, time the passes apart)
         ("bench 16-bit MSB pp bs64 rsi256, bench.py chunk", bench_cfg,
-         BENCH_CHUNK_RSIS, False),
-        ("8-bit no-pp bs16 rsi128", Config(8, 16, 128, 0), None, False),
-        ("13-bit signed bs32 rsi64 dirty", Config(13, 32, 64, sgn | pp | msb),
-         None, True),
-        ("32-bit signed bs64 rsi256", Config(32, 64, 256, sgn | pp), None,
+         BENCH_CHUNK_RSIS, False, 3, False),
+        ("8-bit no-pp bs16 rsi128", Config(8, 16, 128, 0), None, False, 3,
          False),
-        ("16-bit MSB pp NOT_ENFORCE bs10 rsi256",
-         Config(16, 10, 256, msb | pp | ne), None, False),
+        ("13-bit signed bs32 rsi64 dirty", Config(13, 32, 64, sgn | pp | msb),
+         None, True, 3, False),
+        ("32-bit signed bs64 rsi256", Config(32, 64, 256, sgn | pp), None,
+         False, 3, False),
+        ("16-bit MSB pp NOT_ENFORCE bs10 rsi256", bs10_cfg, None, False, 3,
+         True),
         ("24-bit MSB pp 3-byte NOT_ENFORCE bs48 rsi256",
-         Config(24, 48, 256, msb | pp | b3 | ne), None, False),
+         Config(24, 48, 256, msb | pp | b3 | ne), None, False, 3, False),
+        # the k chain's shapes: one tile (a short one); 33 tiles, one more
+        # than the chain's runs, the last of 27 blocks; 31 tiles
+        ("one short tile, NB 40", Config(16, 64, 8, msb | pp), 5, False, 0,
+         False),
+        ("33 tiles, the last of 27 blocks", Config(16, 16, 25, msb | pp), 83,
+         False, 13, False),
+        ("31 tiles, the last of 40 blocks", Config(32, 8, 7, sgn | pp), 280,
+         False, 29, False),
     ]
-    for name, cfg, n_rsi, dirty in checks:
+    for name, cfg, n_rsi, dirty, k_init, passes in checks:
         _, e, _, _ = check_encode_kernel(
-            name, cfg, n_rsi or default_rsis_per_chunk(cfg), device, dirty)
+            name, cfg, n_rsi or default_rsis_per_chunk(cfg), device, dirty,
+            k_init, passes)
         err1 = max(err1, e)
 
     # raw bytes and k read, windows, bit lengths and k written; per sample
@@ -898,8 +1004,8 @@ def main():
 
     # 7b. kernel 6 against its plain version on the same chunks, at every
     #     window width the path can choose, beside kernels 3 + 4; then on
-    #     a block size that does not divide the 128-sample slab and on an
-    #     RSI count that is not a multiple of 32
+    #     block sizes that do not divide a scan group, on an odd RSI
+    #     count, and on rough and random samples at the bench chunk
     fused_checks = {name: (cfg, raw, comp, args_by_wf)
                     for name, (cfg, raw, _, comp, args_by_wf)
                     in chunks.items()}
@@ -920,6 +1026,8 @@ def main():
         err6 = max(err6, *(r[1] for r in rows))
         if cfg == bench_cfg and len(raw) == n_bench * cfg.rsi_len_bytes:
             bench6 += rows
+    err6 = max(err6, check_fused_inputs("bench 16-bit", bench_cfg, n_bench,
+                                        device, seed=96))
     ms6 = statistics.median(r[2] for r in bench6)
     plain6 = statistics.median(r[3] for r in bench6)
     two6 = statistics.median(r[4] for r in bench6)

@@ -90,37 +90,6 @@ __device__ __forceinline__ void load_group(const uint32_t* __restrict__ row,
     }
 }
 
-// Lane's SCAN_V samples of group g to its RSI's output row: the samples
-// themselves (BSZ 0) or their BSZ bytes each.
-template <int BSZ>
-__device__ __forceinline__ void store_group(uint8_t* __restrict__ row, int S,
-                                            int g, int lane, int vec, int msb,
-                                            const uint32_t (&x)[SCAN_V]) {
-    const int base = g * SCAN_G + lane * SCAN_V;
-    if (vec) {
-#pragma unroll
-        for (int h = 0; h < SCAN_V; h += 4) {
-            if (base + h >= S) break;
-            if constexpr (BSZ == 0) {
-                store_words<4>(row + (long long)(base + h) * 4, &x[h]);
-            } else {
-                uint32_t w[BSZ];
-                pack4<BSZ>(&x[h], msb, w);
-                store_words<BSZ>(row + (long long)(base + h) * BSZ, w);
-            }
-        }
-    } else {
-#pragma unroll
-        for (int k = 0; k < SCAN_V; k++) {
-            if (base + k >= S) break;
-            if constexpr (BSZ == 0)
-                reinterpret_cast<uint32_t*>(row)[base + k] = x[k];
-            else
-                put_sample<BSZ>(row, base + k, x[k], msb);
-        }
-    }
-}
-
 // One warp per RSI: deltas -> samples (BSZ 0) or their bytes.
 template <int BSZ, int PATH>
 __global__ void __launch_bounds__(256)
@@ -247,7 +216,7 @@ extern "C" int aec_unpredict_swizzle(const void* deltas, void* out,
                                      unsigned xmax, unsigned med,
                                      unsigned sign_bit, void* stream) {
     cudaStream_t s = (cudaStream_t)stream;
-    const Params p{n_rsi, S, msb, pp, signed_path, sign_ext, 0,
+    const Params p{n_rsi, S, msb, pp, signed_path, sign_ext,
                    xmax, med, sign_bit};
     const uint32_t* d = (const uint32_t*)deltas;
     uint8_t* o = (uint8_t*)out;
@@ -264,7 +233,7 @@ extern "C" int aec_unpredict_rsis(const void* deltas, void* out,
                                   long long n_rsi, int S, int signed_path,
                                   int sign_ext, unsigned xmax, unsigned med,
                                   unsigned sign_bit, void* stream) {
-    const Params p{n_rsi, S, 0, 1, signed_path, sign_ext, 0,
+    const Params p{n_rsi, S, 0, 1, signed_path, sign_ext,
                    xmax, med, sign_bit};
     return launch_scan<0>((const uint32_t*)deltas, (uint8_t*)out, p,
                           (cudaStream_t)stream);

@@ -6,11 +6,9 @@
 
 namespace {
 
-constexpr int SL = 128;  // samples per slab
-
 struct Params {
     long long n_rsi;
-    int S, msb, pp, signed_path, sign_ext, words;
+    int S, msb, pp, signed_path, sign_ext;
     uint32_t xmax, med, sign_bit;
 };
 
@@ -232,71 +230,36 @@ __device__ __forceinline__ void scan_verify(const uint32_t (&d)[SCAN_V],
     carry = __shfl_sync(FULL, x[SCAN_V - 1], 31);
 }
 
-// One thread's walk over `len` consecutive deltas of its RSI, `in`, into
-// the bytes of their samples at `out` (word-aligned; BSZ 1, 2 or 4): what
-// len steps of the predictor and calls of put_sample give.  `first` says that in[0]
-// is the RSI's first sample, its reference; `last` carries the sample
-// before in[0] in and the last one out.  The path is a template argument
-// and the deltas come eight at a time, loaded before and stored after the
-// eight dependent steps, so that nothing but the steps themselves is on
-// the serial chain.
-template <int BSZ, int PATH>
-__device__ __forceinline__ void chain_run(const uint32_t* __restrict__ in,
-                                          uint32_t* __restrict__ out, int len,
-                                          bool first, uint32_t& last,
-                                          const Params& p) {
-    constexpr int B = 8, PER_WORD = 4 / BSZ;
-    uint8_t* out_bytes = reinterpret_cast<uint8_t*>(out);
-    int k = 0;
-    for (; k + B <= len; k += B) {
-        uint32_t d[B], v[B];
+// Lane's SCAN_V samples of group g of a row of S samples to the row's
+// output: the samples themselves (BSZ 0) or their BSZ bytes each.  `vec`
+// says that the row starts on a 16-byte boundary and S is a multiple of 4,
+// so that four samples go out as one vector; otherwise they go one by one.
+template <int BSZ>
+__device__ __forceinline__ void store_group(uint8_t* __restrict__ row, int S,
+                                            int g, int lane, int vec, int msb,
+                                            const uint32_t (&x)[SCAN_V]) {
+    const int base = g * SCAN_G + lane * SCAN_V;
+    if (vec) {
 #pragma unroll
-        for (int u = 0; u < B; u++) d[u] = in[k + u];
-#pragma unroll
-        for (int u = 0; u < B; u++) {
-            if (PATH == LAYOUT_ONLY) {
-                v[u] = d[u];
+        for (int h = 0; h < SCAN_V; h += 4) {
+            if (base + h >= S) break;
+            if constexpr (BSZ == 0) {
+                store_words<4>(row + (long long)(base + h) * 4, &x[h]);
             } else {
-                v[u] = step_of<PATH>(last, d[u], p);
-                if (u == 0 && first && k == 0)
-                    v[u] = p.sign_ext ? (d[u] ^ p.sign_bit) - p.sign_bit
-                                      : d[u];
-                last = v[u];
+                uint32_t w[BSZ];
+                pack4<BSZ>(&x[h], msb, w);
+                store_words<BSZ>(row + (long long)(base + h) * BSZ, w);
             }
         }
-#pragma unroll
-        for (int w = 0; w < B / PER_WORD; w++) {
-            uint32_t word = 0;
-#pragma unroll
-            for (int q = 0; q < PER_WORD; q++)
-                word |= sample_bytes<BSZ>(v[w * PER_WORD + q], p.msb)
-                    << (8 * BSZ * q);
-            out[k / PER_WORD + w] = word;
-        }
-    }
-    for (; k < len; k++) {  // a slab that ends short of eight samples
-        uint32_t v = in[k];
-        if (PATH != LAYOUT_ONLY) {
-            v = step_of<PATH>(last, v, p);
-            if (first && k == 0)
-                v = p.sign_ext ? (in[k] ^ p.sign_bit) - p.sign_bit : in[k];
-            last = v;
-        }
-        put_sample<BSZ>(out_bytes, k, v, p.msb);
-    }
-}
-
-// A warp stores nbytes of a shared output row to dst: 32-bit words when
-// every row and slab starts on a 4-byte boundary, bytes otherwise.
-__device__ __forceinline__ void store_row(uint8_t* __restrict__ dst,
-                                          const uint32_t* row, int nbytes,
-                                          int words, int lane) {
-    if (words) {
-        uint32_t* dw = reinterpret_cast<uint32_t*>(dst);
-        for (int i = lane; i < nbytes / 4; i += 32) dw[i] = row[i];
     } else {
-        const uint8_t* sb = reinterpret_cast<const uint8_t*>(row);
-        for (int i = lane; i < nbytes; i += 32) dst[i] = sb[i];
+#pragma unroll
+        for (int k = 0; k < SCAN_V; k++) {
+            if (base + k >= S) break;
+            if constexpr (BSZ == 0)
+                reinterpret_cast<uint32_t*>(row)[base + k] = x[k];
+            else
+                put_sample<BSZ>(row, base + k, x[k], msb);
+        }
     }
 }
 

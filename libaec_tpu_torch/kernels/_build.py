@@ -30,10 +30,10 @@ P, I, LL, U = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_uint
 
 # C signatures of the entry points in csrc/*.cu
 SIGNATURES = {
-    # raw, win, block_bits, maps, zflag, comp, tile_kin, chosen,
-    # k_init, k_final, nb, rsi, bs, bps, bsz, msb, pp, signed, id_len,
-    # kmax, w0, xmax, xmin, mask, stream
-    "aec_encode_fields": [P, P, P, P, P, P, P, P, P, P, LL,
+    # raw, win, block_bits, maps, zflag, comp, tile_kin, k_init, k_final,
+    # nb, rsi, bs, bps, bsz, msb, pp, signed, id_len, kmax, w0, xmax, xmin,
+    # mask, stream
+    "aec_encode_fields": [P, P, P, P, P, P, P, P, P, LL,
                           I, I, I, I, I, I, I, I, I, I, U, U, U, P],
     # win, off, block_bits, words, tail, nb, w, nwords, stream
     "aec_merge_windows": [P, P, P, P, P, LL, I, LL, P],

@@ -2,20 +2,34 @@
 
 CUDA route: csrc/decode_fused.cu, the port of fused_tile_kernel
 (libaec_tpu/kernels/decode_fused_pallas.py:48): kernels 3 and 4 in one,
-with no [NB, bs] delta array in device memory.  Plain route:
-`decode_unpredict_swizzle_plain`, ops/bitunpack.decode_blocks followed by
-ops/unpredict.unpredict_swizzle, used only as a reference: on the CPU by
-the tests, on the card by chip_smoke.py.  `decode_unpredict_swizzle` takes
-the plain route only for CPU tensors; CUDA tensors launch the kernel or
-raise.
+with no [NB, bs] delta array in device memory.  A thread block owns a few
+RSIs and walks them in slabs of whole blocks; its parse warps decode a
+slab's blocks into shared memory (kernel 3's parse) while its chain warps
+scan the slab before, a warp on a row: kernel 4's verified scan (guess by
+prefix sum, check with the step, repair or walk), the carry handed from
+slab to slab.  Plain route: `decode_unpredict_swizzle_plain`,
+ops/bitunpack.decode_blocks followed by ops/unpredict.unpredict_swizzle,
+used only as a reference: on the CPU by the tests, on the card by
+chip_smoke.py.  `decode_unpredict_swizzle_scan_plain` is the same function
+by the kernel's algorithm and slab geometry (`slab_geometry`), for the
+same callers.  `decode_unpredict_swizzle` takes the plain route only for
+CPU tensors; CUDA tensors launch the kernel or raise.
 """
 import torch
 
 from ..ops import bitunpack, unpredict
+from ..ops.u32 import from_bits
 from . import _build
 from .decode_cuda import MAX_WF
 
 launches = 0
+
+# constants of csrc/decode_fused.cu and csrc/unpredict_step.cuh
+SLAB_GROUPS = 8     # scan groups in a slab row, at most
+MAX_GROUP = 32      # RSIs per thread block, at most
+BLOCKS_PER_SM = 2   # thread blocks an SM holds at once
+SCAN_G = unpredict.SCAN_LANES * unpredict.SCAN_V
+H100_SMS = 132
 
 
 def fused_supported(cfg):
@@ -34,6 +48,37 @@ def decode_unpredict_swizzle_plain(cfg, win, fs_bit, lsb_rel, meta,
                                      ref_sample)
     return unpredict.unpredict_swizzle(
         cfg, deltas.view(n_rsi, cfg.samples_per_rsi))
+
+
+def slab_geometry(cfg, n_rsi, sms=H100_SMS):
+    """(RSIs a thread block owns, blocks of one RSI in a slab) as
+    aec_decode_fused chooses them for n_rsi RSIs on a card of `sms` SMs:
+    the smallest group whose thread blocks are all on the card at once;
+    a slab row of as many scan groups as the largest group's shared
+    memory allows and the RSI has, in whole blocks whose samples are a
+    multiple of 4."""
+    group = 1
+    while group < MAX_GROUP and -(-n_rsi // group) > BLOCKS_PER_SM * sms:
+        group *= 2
+    groups = min(SLAB_GROUPS, MAX_GROUP // group,
+                 -(-cfg.samples_per_rsi // SCAN_G))
+    per_slab = groups * SCAN_G // cfg.block_size
+    if cfg.block_size % 4:
+        per_slab &= ~1
+    return group, per_slab
+
+
+def decode_unpredict_swizzle_scan_plain(cfg, win, fs_bit, lsb_rel, meta,
+                                        ref_sample, n_rsi, sms=H100_SMS):
+    """`decode_unpredict_swizzle_plain` by the kernel's algorithm: the
+    verified scan over the slabs the kernel would cut for n_rsi RSIs."""
+    deltas = bitunpack.decode_blocks(cfg, win, fs_bit, lsb_rel, meta,
+                                     ref_sample)
+    _, per_slab = slab_geometry(cfg, n_rsi, sms)
+    samples = unpredict.unpredict_rsis_scan(
+        cfg, from_bits(deltas.view(n_rsi, cfg.samples_per_rsi)),
+        slab=per_slab * cfg.block_size)
+    return unpredict.samples_to_bytes(cfg, samples)
 
 
 def decode_unpredict_swizzle(cfg, win, fs_bit, lsb_rel, meta, ref_sample,

@@ -1,7 +1,14 @@
 """Kernel 1: raw chunk bytes -> per-block bit windows, block_bits, k_final.
 
 CUDA route: csrc/encode.cu, the port of encode_tile_kernel
-(libaec_tpu/kernels/encode_pallas.py:83).  Plain route:
+(libaec_tpu/kernels/encode_pallas.py:83), in three launches: pass A (a
+thread block per tile of 64 blocks: deltas, zero flags, split lengths,
+each block's warm-start map and the tile's composite), the k chain as a
+scan over runs of tile composites (one thread block), pass C (the same
+tiles: each block's k from its tile's incoming k, option select, fields,
+pack).  The plain versions of its two algorithms that differ from the
+straightforward ones are ops/options.chain_k_tiled and
+ops/options.fs_tables_lanes.  Plain route:
 `encode_fields_plain`, the field pipeline of ops/ (accessors, preprocess,
 zeroruns, options, fields, bitpack stage A) -- the twin of the JAX
 package's XLA pipeline, used only as a reference: on the CPU by the
@@ -126,12 +133,11 @@ def encode_fields(cfg, raw_u8, k_init):
     zflag = empty(NB, dtype=torch.uint8)
     comp = empty(nt, 32, dtype=torch.uint8)
     tile_kin = empty(nt, dtype=torch.int32)
-    chosen = empty(NB, dtype=torch.uint8)
     k_final = empty(1, dtype=torch.int32)
     status = lib.aec_encode_fields(
         raw_u8.data_ptr(), win.data_ptr(), block_bits.data_ptr(),
         maps.data_ptr(), zflag.data_ptr(), comp.data_ptr(),
-        tile_kin.data_ptr(), chosen.data_ptr(), k_init.data_ptr(),
+        tile_kin.data_ptr(), k_init.data_ptr(),
         k_final.data_ptr(), NB, cfg.rsi, cfg.block_size,
         cfg.bits_per_sample, cfg.bytes_per_sample, int(cfg.msb),
         int(cfg.preprocess), int(cfg.signed), cfg.id_len, cfg.kmax, W0,

@@ -22,6 +22,24 @@ def fs_tables(d_blk, K):
     return torch.stack([(d_blk >> k).sum(dim=-1) for k in range(K)], dim=-1)
 
 
+def fs_tables_lanes(d_blk, K, bps):
+    """`fs_tables` the way the CUDA kernel computes it (csrc/encode.cu,
+    fs_sums): a lane takes one k.  Up to 16 values of k it takes half of
+    the block's samples (the first 32, or the rest), and the two halves'
+    sums are added.  Up to 25-bit samples a lane's sum and the split
+    lengths made of it are kept in 32 bits (64 * 2^25 + 64 * 32 < 2^32:
+    they wrap here as they would there); wider ones in 64 bits.  Only tests
+    call it."""
+    parts = [d_blk[:, :32], d_blk[:, 32:]] if K <= 16 else [d_blk]
+    cols = []
+    for k in range(K):
+        sums = [(part >> k).sum(dim=-1) for part in parts]
+        if bps <= 25:
+            sums = [s & MASK32 for s in sums]
+        cols.append(sum(sums))
+    return torch.stack(cols, dim=-1)
+
+
 def split_lengths(fs, this_bs):
     """L(k) = fs_len(k) + this_bs * (k + 1), exact int64 [NB, K]."""
     kk = torch.arange(fs.shape[1], dtype=torch.int64, device=fs.device)
@@ -75,6 +93,66 @@ def chain_k(maps, k_init):
     col = torch.gather(P, 1, k_init.reshape(1, 1).expand(P.shape[0], 1))
     chosen = col[:, 0]
     return chosen, chosen[-1:]
+
+
+def _compose_runs(m):
+    """m: int64 maps [N, R, K], N runs of R maps each.  Returns the N run
+    composites [N, K]: each run's maps composed left to right."""
+    n, r, k = m.shape
+    c = torch.arange(k, dtype=torch.int64, device=m.device).expand(n, k)
+    for s in range(r):
+        c = torch.gather(m[:, s], 1, c)
+    return c
+
+
+def _walk_runs(m, k_in):
+    """m: int64 maps [N, R, K]; k_in: int64 [N], the k entering each run.
+    Returns (the k entering each map, the k leaving it), both [N, R]."""
+    ins, outs, k = [], [], k_in
+    for s in range(m.shape[1]):
+        ins.append(k)
+        k = torch.gather(m[:, s], 1, k[:, None])[:, 0]
+        outs.append(k)
+    return torch.stack(ins, 1), torch.stack(outs, 1)
+
+
+def _runs_of(maps, length):
+    """maps [N, K] as [ceil(N / length), length, K], padded with identity
+    maps."""
+    n, k = maps.shape
+    pad = -n % length
+    ident = torch.arange(k, dtype=torch.int64, device=maps.device)
+    return torch.cat([maps, ident.expand(pad, k)]).view(-1, length, k)
+
+
+def chain_k_tiled(maps, k_init, tile=64, runs=32):
+    """`chain_k` the way the CUDA kernel computes it (csrc/encode.cu): a
+    tile of `tile` consecutive blocks has a composite map; the tiles are
+    dealt over `runs` contiguous runs, each with a composite of its own;
+    the run composites are chained one by one from k_init (clamped to the
+    maps' domain); every run is walked from the k that enters it, which
+    gives each tile's incoming k; every tile is walked from that, which
+    gives each block's k.  Dependent steps: tile + run length + runs + run
+    length + tile, not NB.
+
+    Returns (chosen_k int64 [NB], k_final int64 [1], the tile composites
+    int64 [nt, K], tile_kin int64 [nt]).  Only tests call it."""
+    nb, k = maps.shape
+    m = _runs_of(maps, tile)                      # [nt, tile, K]
+    comp = _compose_runs(m)
+    nt = comp.shape[0]
+    c = _runs_of(comp, -(-nt // runs))            # [<= runs, run, K]
+    run_comp = _compose_runs(c)
+    kk = int(k_init.reshape(-1)[0].clamp(0, k - 1))
+    run_kin = []
+    for w in range(run_comp.shape[0]):
+        run_kin.append(kk)
+        kk = int(run_comp[w, kk])
+    run_kin = torch.tensor(run_kin, dtype=torch.int64, device=maps.device)
+    tile_kin = _walk_runs(c, run_kin)[0].reshape(-1)[:nt]
+    chosen = _walk_runs(m, tile_kin)[1].reshape(-1)[:nb]
+    k_final = torch.tensor([kk], dtype=torch.int64, device=maps.device)
+    return chosen, k_final, comp, tile_kin
 
 
 def se_lengths(d_blk, uncomp_len):

@@ -97,7 +97,7 @@ def step_fn(cfg):
 
 
 def unpredict_rsis_scan(cfg, deltas, lanes=SCAN_LANES, per_lane=SCAN_V,
-                        repairs=SCAN_REPAIRS, counts=None):
+                        repairs=SCAN_REPAIRS, counts=None, slab=None):
     """`unpredict_rsis` by the kernels' algorithm: same contract, same
     samples.  Per group of lanes * per_lane consecutive samples of every
     RSI (deltas past the RSI's end count as 0): the guess is the carry
@@ -111,7 +111,13 @@ def unpredict_rsis_scan(cfg, deltas, lanes=SCAN_LANES, per_lane=SCAN_V,
     the last sample of the lane before, round after round, until no
     lane's last sample changes (`lanes` rounds at most).  `counts`, a
     dict, gets the repairs made, the groups walked and the rounds they
-    took, summed over all RSIs."""
+    took, summed over all RSIs.
+
+    `slab` is kernel 6's geometry (csrc/decode_fused.cu): the row is cut
+    into slabs of `slab` samples and the groups start anew in every slab,
+    so that a slab's last group may be short as well as the RSI's.  The
+    carry into the next group is the last real sample, whatever the zeros
+    after it gave."""
     counts = {} if counts is None else counts
     counts.update(repairs=0, walked=0, rounds=0)
     if not cfg.preprocess:
@@ -126,9 +132,12 @@ def unpredict_rsis_scan(cfg, deltas, lanes=SCAN_LANES, per_lane=SCAN_V,
     out = torch.empty_like(deltas)
     carry = torch.zeros_like(ref)
     pos = torch.arange(group, device=deltas.device)[None, :]
-    for s0 in range(0, S, group):
-        d = deltas[:, s0:s0 + group]
-        g = d.shape[1]
+    slab = S if slab is None else slab
+    starts = [(s0, min(group, s1 + slab - s0, S - s0))
+              for s1 in range(0, S, slab)
+              for s0 in range(s1, min(s1 + slab, S), group)]
+    for s0, g in starts:
+        d = deltas[:, s0:s0 + g]
         d = torch.nn.functional.pad(d, (0, group - g))
         z = zig(d)
         fixed = torch.zeros_like(d, dtype=torch.bool)
@@ -173,7 +182,7 @@ def unpredict_rsis_scan(cfg, deltas, lanes=SCAN_LANES, per_lane=SCAN_V,
                 raise AssertionError("the walk did not settle")
             x[rows] = xs.view(-1, group)
         out[:, s0:s0 + g] = x[:, :g]
-        carry = x[:, -1]
+        carry = x[:, g - 1]
     return out
 
 

@@ -63,20 +63,56 @@ def chunk(cfg, n_rsi, seed):
         pack_samples(vals, cfg.bits_per_sample, cfg.flags), np.uint8).copy())
 
 
-@pytest.mark.parametrize("cfg", [
-    BENCH,
-    Config(8, 16, 128, 0),
-    Config(13, 32, 64, AEC_DATA_SIGNED | AEC_DATA_PREPROCESS | AEC_DATA_MSB),
-    Config(32, 64, 256, AEC_DATA_SIGNED | AEC_DATA_PREPROCESS),
-    Config(16, 10, 32, AEC_DATA_MSB | AEC_DATA_PREPROCESS | AEC_NOT_ENFORCE),
-    Config(24, 48, 16, AEC_DATA_MSB | AEC_DATA_PREPROCESS | AEC_DATA_3BYTE
-           | AEC_NOT_ENFORCE),
-], ids=["bench16", "u8", "s13", "s32", "bs10", "u24bs48"])
-def test_encode_kernel_matches_plain(dev, cfg):
-    raw = chunk(cfg, 24, cfg.bits_per_sample)
-    k0 = torch.tensor([min(3, cfg.kmax)], dtype=torch.int32)
+ENCODE_CASES = [  # (id, config, RSIs, k_init)
+    ("bench16", BENCH, 24, 3),
+    ("u8", Config(8, 16, 128, 0), 24, 3),
+    ("s13", Config(13, 32, 64, AEC_DATA_SIGNED | AEC_DATA_PREPROCESS
+                   | AEC_DATA_MSB), 24, 3),
+    ("s32", Config(32, 64, 256, AEC_DATA_SIGNED | AEC_DATA_PREPROCESS), 24,
+     3),
+    ("bs10", Config(16, 10, 32, AEC_DATA_MSB | AEC_DATA_PREPROCESS
+                    | AEC_NOT_ENFORCE), 24, 3),
+    ("u24bs48", Config(24, 48, 16, AEC_DATA_MSB | AEC_DATA_PREPROCESS
+                       | AEC_DATA_3BYTE | AEC_NOT_ENFORCE), 24, 3),
+] + [
+    # the k chain's shapes: one tile, a short one (NB 40); 33 tiles, one
+    # more than the chain's runs, the last of 27 blocks (NB 2075); 31
+    # tiles, the last of 40 blocks (NB 1960): each from the lowest, a
+    # middle and the highest incoming k (capped at the config's kmax)
+    (f"{name}-k{k_init}", cfg, n_rsi, k_init)
+    for name, cfg, n_rsi in (
+        ("one-tile", Config(16, 64, 8, AEC_DATA_MSB | AEC_DATA_PREPROCESS), 5),
+        ("33-tiles", Config(16, 16, 25, AEC_DATA_MSB | AEC_DATA_PREPROCESS),
+         83),
+        ("31-tiles", Config(32, 8, 7, AEC_DATA_SIGNED | AEC_DATA_PREPROCESS),
+         280))
+    for k_init in (0, 13, 31)
+]
+
+
+@pytest.mark.parametrize("cfg,n_rsi,k_init", [c[1:] for c in ENCODE_CASES],
+                         ids=[c[0] for c in ENCODE_CASES])
+def test_encode_kernel_matches_plain(dev, cfg, n_rsi, k_init):
+    raw = chunk(cfg, n_rsi, cfg.bits_per_sample)
+    k0 = torch.tensor([min(k_init, cfg.kmax)], dtype=torch.int32)
     want = encode_cuda.encode_fields_plain(cfg, raw, k0)
     got = encode_cuda.encode_fields(cfg, raw.to(dev), k0.to(dev))
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+
+
+@pytest.mark.parametrize("offset", [1, 2, 4])
+@pytest.mark.parametrize("cfg", [c[1] for c in ENCODE_CASES[:6]],
+                         ids=[c[0] for c in ENCODE_CASES[:6]])
+def test_encode_kernel_unaligned_input(dev, cfg, offset):
+    """A chunk that does not start on an 8-byte boundary comes in byte by
+    byte; the windows are the same."""
+    raw = chunk(cfg, 7, cfg.bits_per_sample + offset)
+    k0 = torch.tensor([min(5, cfg.kmax)], dtype=torch.int32)
+    want = encode_cuda.encode_fields_plain(cfg, raw, k0)
+    shifted = torch.cat([raw[:offset], raw]).to(dev)[offset:]
+    assert shifted.data_ptr() % 8 == offset and shifted.is_contiguous()
+    got = encode_cuda.encode_fields(cfg, shifted, k0.to(dev))
     for g, w in zip(got, want):
         assert torch.equal(g.cpu(), w)
 
@@ -445,17 +481,28 @@ FUSED_CONFIGS = [cfg for cfg in DECODE_CONFIGS if cfg is not U24] + [
     Config(32, 48, 8, AEC_DATA_SIGNED | AEC_DATA_PREPROCESS
            | AEC_NOT_ENFORCE),                 # 2 blocks a slab
     Config(1, 8, 16, AEC_DATA_SIGNED | AEC_DATA_PREPROCESS),
+    Config(32, 64, 16, AEC_DATA_PREPROCESS),   # unsigned, deltas of all u32
 ]
-FUSED_IDS = DECODE_IDS[:-1] + ["bs10", "u8bs10", "s32bs48", "s1"]
+FUSED_IDS = DECODE_IDS[:-1] + ["bs10", "u8bs10", "s32bs48", "s1", "u32"]
 
 
+@pytest.mark.parametrize("kind", ["mixed", "midentropy", "random"])
 @pytest.mark.parametrize("cfg", FUSED_CONFIGS, ids=FUSED_IDS)
 @pytest.mark.parametrize("n_rsi", [1, 24, 33, 77])
-def test_fused_kernel_matches_plain(dev, cfg, n_rsi):
+def test_fused_kernel_matches_plain(dev, cfg, n_rsi, kind):
     """Kernel 6 against its plain version, kernels 3 + 4 and native.decode,
     at the chunk's bucket width and every wider width the decode path can
-    choose; RSI counts below, at and across the 32-RSI group."""
-    raw = chunk(cfg, n_rsi, cfg.bits_per_sample + n_rsi).numpy().tobytes()
+    choose; RSI counts of one thread block's row and of many.  `mixed` is
+    one segment per tests/gen.py kind; `midentropy` rows take repairs,
+    `random` rows (at 32 bits their deltas span all of u32, on both
+    predictor paths) end in the serial walk."""
+    if kind == "mixed":
+        raw = chunk(cfg, n_rsi, cfg.bits_per_sample + n_rsi).numpy().tobytes()
+    else:
+        rng = np.random.default_rng(cfg.bits_per_sample + n_rsi)
+        raw = pack_samples(gen_values(
+            rng, n_rsi * cfg.samples_per_rsi, cfg.bits_per_sample,
+            cfg.signed, kind), cfg.bits_per_sample, cfg.flags)
     comp, recs, bucket = scanned(cfg, raw)
     wf_max = bitunpack.window_words(cfg)
     want = None
@@ -469,6 +516,9 @@ def test_fused_kernel_matches_plain(dev, cfg, n_rsi):
                 cfg, *args, n_rsi)
             assert want.numpy().tobytes() == native.decode(
                 comp, len(raw), cfg)[1]
+            assert torch.equal(
+                decode_fused_cuda.decode_unpredict_swizzle_scan_plain(
+                    cfg, *args, n_rsi), want)
         before = decode_fused_cuda.launches
         on_dev = [a.to(dev) for a in args]
         got = decode_fused_cuda.decode_unpredict_swizzle(cfg, *on_dev, n_rsi)
@@ -480,12 +530,19 @@ def test_fused_kernel_matches_plain(dev, cfg, n_rsi):
         assert torch.equal(got, two), wf
 
 
-@pytest.mark.parametrize("n_rsi", [3000, 5000, 10000])
-def test_fused_kernel_group_sizes(dev, n_rsi):
-    """Many short RSIs: kernel 6 gives a thread block 8, 16 or 32 of them
-    instead of 4 once the chunk has more than the card holds at once."""
+@pytest.mark.parametrize("kind", ["mixed", "midentropy", "random"])
+@pytest.mark.parametrize("n_rsi", [300, 600, 1500, 3000, 5000, 10000])
+def test_fused_kernel_group_sizes(dev, n_rsi, kind):
+    """Many short RSIs: kernel 6 gives a thread block 2, 4, 8, 16 or 32 of
+    them instead of one once the chunk has more than the card holds
+    thread blocks at once; its chain warps then take several rows each."""
     cfg = Config(8, 8, 2, AEC_DATA_PREPROCESS)
-    raw = chunk(cfg, n_rsi, n_rsi).numpy().tobytes()
+    if kind == "mixed":
+        raw = chunk(cfg, n_rsi, n_rsi).numpy().tobytes()
+    else:
+        raw = pack_samples(gen_values(
+            np.random.default_rng(n_rsi), n_rsi * cfg.samples_per_rsi, 8,
+            False, kind), 8, cfg.flags)
     comp, recs, wf = scanned(cfg, raw)
     recs["win"] = native.fill_windows(comp, recs["fs_off"], recs["meta"], wf)
     args = [u32_to_bits(a).to(dev) for a in scan_record_arrays(recs)]

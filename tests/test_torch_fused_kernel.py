@@ -105,6 +105,54 @@ def test_plain_matches_native(bps, bs, rsi, flags, n_rsi):
         assert plain(cfg, arrs, n_rsi) == want[1], kind
 
 
+@pytest.mark.parametrize("kind", ["lowentropy", "midentropy", "random"])
+@pytest.mark.parametrize("bps,bs,rsi,flags,n_rsi", [
+    (16, 64, 40, MSB | PP, 5),         # slabs of 2048 and 512 samples
+    (16, 10, 256, MSB | PP | NE, 3),   # a slab of 2040: a group of 248
+    (32, 48, 11, SGN | PP | NE, 7),    # one slab, its last group of 16
+    (8, 10, 3, PP | NE, 5),            # rows of 30 samples
+    (16, 64, 8, MSB, 6),               # no preprocessing: the layout alone
+])
+def test_scan_plain_matches_plain_and_native(bps, bs, rsi, flags, n_rsi,
+                                             kind):
+    """The plain version that follows the kernel (the verified scan over
+    its slabs) against the serial plain version and native.decode."""
+    cfg = Config(bps, bs, rsi, flags)
+    comp, raw, arrs = scanned(cfg, n_rsi, kind, bps + bs + n_rsi)
+    tcfg = TorchConfig(bps, bs, rsi, flags)
+    args = [u32_to_bits(a) for a in arrs]
+    got = decode_fused_cuda.decode_unpredict_swizzle_scan_plain(
+        tcfg, *args, n_rsi)
+    assert got.numpy().tobytes() == plain(cfg, arrs, n_rsi)
+    assert got.numpy().tobytes() == native.decode(comp, len(raw), cfg)[1]
+    # many RSIs: the geometry of a larger group gives the same bytes
+    other = decode_fused_cuda.decode_unpredict_swizzle_scan_plain(
+        tcfg, *args, n_rsi, sms=1)
+    assert torch.equal(other, got)
+
+
+def test_slab_geometry():
+    """Slabs are whole blocks, a multiple of 4 samples, within the scan
+    groups the shared memory holds; groups grow with the RSI count."""
+    geometry = decode_fused_cuda.slab_geometry
+    bench = TorchConfig(16, 64, 256, MSB | PP)
+    assert geometry(bench, 1) == (1, 32)
+    assert geometry(bench, 264) == (1, 32)
+    assert geometry(bench, 512) == (2, 32)
+    assert geometry(bench, 8161) == (32, 4)
+    assert geometry(TorchConfig(16, 10, 256, PP | NE), 512) == (2, 204)
+    assert geometry(TorchConfig(8, 10, 3, NE), 5) == (1, 24)
+    assert geometry(TorchConfig(16, 8, 1, 0), 10 ** 6) == (32, 32)
+    for bs in range(8, 65, 2):
+        for n_rsi in (1, 600, 3000, 100000):
+            cfg = TorchConfig(16, bs, 300, PP | NE)
+            group, per_slab = geometry(cfg, n_rsi)
+            groups = -(-per_slab * bs // decode_fused_cuda.SCAN_G)
+            assert per_slab >= 1 and per_slab * bs % 4 == 0
+            assert groups <= decode_fused_cuda.SLAB_GROUPS
+            assert group * groups <= decode_fused_cuda.MAX_GROUP
+
+
 def test_gate_and_shape_checks():
     pp = PP
     for bps in (8, 16, 32):

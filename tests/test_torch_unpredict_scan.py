@@ -35,7 +35,7 @@ from libaec_tpu.constants import (  # noqa: E402
 )
 from libaec_tpu.ops.unpredict import unpredict_rsis as jax_unpredict  # noqa: E402
 from libaec_tpu_torch import Config  # noqa: E402
-from libaec_tpu_torch.kernels import unpredict_cuda  # noqa: E402
+from libaec_tpu_torch.kernels import decode_fused_cuda, unpredict_cuda  # noqa: E402
 from libaec_tpu_torch.ops import preprocess, unpredict  # noqa: E402
 from libaec_tpu_torch.ops.u32 import MASK32, u32_to_bits  # noqa: E402
 
@@ -149,6 +149,59 @@ def test_scan_shapes(bits, bs, rsi, flags, cap):
     assert np.array_equal(got.numpy().astype(np.uint32), want)
 
 
+# kernel 6 scans slabs of whole blocks (decode_fused_cuda.slab_geometry):
+# (bits, block size, RSI length, flags, RSIs in the chunk, the slab's
+# samples that this geometry must give)
+SLAB_CASES = {
+    "bs64-two-slabs": (16, 64, 40, PP | MSB, 24, 2048),      # 2048 + 512
+    "bs10-short-groups": (16, 10, 256, PP | MSB | AEC_NOT_ENFORCE, 512,
+                          2040),                 # 7 * 256 + 248, then 520
+    "bs48-one-slab": (32, 48, 11, PP | SGN | AEC_NOT_ENFORCE, 7, 768),
+    "bs10-rsi3": (8, 10, 3, PP | AEC_NOT_ENFORCE, 1001, 240),  # rows of 30
+    "bs24-group4": (13, 24, 100, PP | SGN | AEC_NOT_ENFORCE, 1000,
+                    2040),                       # 85 blocks; then 360 samples
+    "group16-two-groups": (16, 16, 100, PP, 3000, 512),       # 512 * 3 + 64
+    "group32-one-group": (32, 8, 40, PP | SGN, 10000, 256),   # 256 + 64
+}
+
+
+@pytest.mark.parametrize("cap", CAPS)
+@pytest.mark.parametrize("kind", ["lowentropy", "midentropy", "random"])
+@pytest.mark.parametrize("case", SLAB_CASES)
+def test_scan_slab_geometry(case, kind, cap):
+    """The scan cut into kernel 6's slabs: groups that end short of 256
+    samples in the middle of an RSI, and the carry from slab to slab."""
+    bits, bs, rsi, flags, n_rsi, slab = SLAB_CASES[case]
+    cfg = Config(bits, bs, rsi, flags)
+    assert decode_fused_cuda.slab_geometry(cfg, n_rsi)[1] * bs == slab
+    d, samples = make_deltas(cfg, kind, "of-samples", seed=len(case))
+    serial = unpredict.unpredict_rsis(cfg, d)
+    assert torch.equal(serial, samples)
+    counts = {}
+    got = unpredict.unpredict_rsis_scan(cfg, d, repairs=CAPS[cap], slab=slab,
+                                        counts=counts)
+    assert torch.equal(got, serial)
+    if kind == "lowentropy":
+        assert counts == {"repairs": 0, "walked": 0, "rounds": 0}
+    # arbitrary deltas, one row from all of u32
+    d, _ = make_deltas(cfg, kind, "arbitrary", seed=len(case) + 1)
+    got = unpredict.unpredict_rsis_scan(cfg, d, repairs=CAPS[cap], slab=slab)
+    assert torch.equal(got, unpredict.unpredict_rsis(cfg, d))
+    jcfg = libaec_tpu.Config(bits, bs, rsi, flags)
+    want = np.asarray(jax_unpredict(jcfg, d.numpy().astype(np.uint32)))
+    assert np.array_equal(got.numpy().astype(np.uint32), want)
+
+
+@pytest.mark.parametrize("slab", [1, 7, 255, 256, 257, 300, 512, 5000])
+def test_scan_any_slab(slab):
+    """Whatever the slab, the samples are the serial version's."""
+    cfg = config("s13")
+    for kind in ("midentropy", "random"):
+        d, serial = references("s13", kind, "of-samples")
+        got = unpredict.unpredict_rsis_scan(cfg, d, slab=slab)
+        assert torch.equal(got, serial)
+
+
 @pytest.mark.parametrize("case", CASES)
 def test_scan_plain_wrapper(case):
     """unpredict_cuda.unpredict_rsis_scan_plain has unpredict_rsis's
@@ -205,3 +258,12 @@ def test_constants_match_the_kernel():
     assert constant("SCAN_V") == unpredict.SCAN_V
     assert unpredict.SCAN_LANES == 32
     assert constant("SCAN_REPAIRS") == unpredict.SCAN_REPAIRS
+    # kernel 6's slab geometry
+    fused = (Path(unpredict.__file__).resolve().parent.parent / "csrc"
+             / "decode_fused.cu").read_text()
+    for name in ("SLAB_GROUPS", "MAX_GROUP", "BLOCKS_PER_SM"):
+        value = int(re.search(rf"constexpr int {name} = (\d+);",
+                              fused).group(1))
+        assert value == getattr(decode_fused_cuda, name)
+    assert decode_fused_cuda.SCAN_G == 32 * constant("SCAN_V")
+    assert "scan_guess(" in fused and "scan_verify<PATH>(" in fused
