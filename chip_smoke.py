@@ -7,7 +7,10 @@ Builds the port's native host library (g++) and the CUDA kernels of
 libaec_tpu_torch/csrc (nvcc), holds each of the six kernels bit-exactly
 against its plain PyTorch version on the card at the chunk shape the main
 path launches (kernels 4, 5 and 6 also on smooth, rough and random samples;
-kernel 1 also at the shapes of its k chain, its launches timed apart), then
+kernel 1 also at the shapes of its k chain, its launches timed apart;
+kernel 2 on the words the stream occupies and its tail, on the windows of
+samples of every kind, of `lowentropy` and of `midentropy` samples; kernels
+2 and 3 also by the profiler's device time of a launch), then
 drives the port's main paths: at two configs, 16-bit samples (the bench
 config) and 24-bit samples stored in 3 bytes,
 libaec_tpu_torch.encode_buffer over two 256 MiB buffers, held against the
@@ -144,14 +147,19 @@ def check_encode_kernel(name, cfg, n_rsi, device, dirty=False, k_init=3,
     return got, err, ms, plain_ms
 
 
-def check_merge_kernel(cfg, win, block_bits, device):
-    """Kernel 2 against its plain version at bit0 0..7; its ms is the
-    median over bit0 of each bit0's median."""
+def check_merge_kernel(name, cfg, win, block_bits, device):
+    """Kernel 2 against its plain version at bit0 0..7: the tail and the
+    used prefix of the word buffer (the kernel writes no word past it).
+    Returns (max_abs_err, the median over bit0 of each bit0's median ms,
+    the same of the plain version, the profiler's mean device ms of a
+    call (both its launches) at bit0 5, the bound of the work the contract asks (the window
+    words that hold bits and block_bits read, the used prefix written),
+    the bound of the whole window array read and whole buffer written)."""
     from libaec_tpu_torch.kernels import encode_cuda, merge_cuda
     from libaec_tpu_torch.ops import bitpack
 
-    nwords = merge_cuda.word_count(cfg, win.shape[0],
-                                   encode_cuda.window_words(cfg) - 1)
+    NB, W = win.shape
+    nwords = merge_cuda.word_count(cfg, NB, encode_cuda.window_words(cfg) - 1)
     worst, times, plain_times = 0, [], []
     for bit0 in range(8):
         b0 = torch.tensor([bit0], dtype=torch.int64, device=device)
@@ -159,16 +167,50 @@ def check_merge_kernel(cfg, win, block_bits, device):
             win, block_bits, b0, nwords), 20)
         want, plain_ms = timed(lambda: bitpack.merge_windows(
             win, block_bits, b0, nwords), 3, warmup=1)
-        err = max(max_abs_err(g, w) for g, w in zip(got, want))
-        print(f"kernel merge_windows NB={win.shape[0]} bit0={bit0} "
-              f"total_bits={int(got[1][0])} max_abs_err={err} "
+        used = merge_cuda.used_words(int(want[1][0]))
+        err = max(max_abs_err(got[0][:used], want[0][:used]),
+                  max_abs_err(got[1], want[1]))
+        print(f"kernel merge_windows [{name}] NB={NB} bit0={bit0} "
+              f"total_bits={int(got[1][0])} used_words={used} "
+              f"buffer_words={nwords} max_abs_err={err} "
               f"ms={ms:.4f} plain_ms={plain_ms:.4f}")
         if err:
-            raise AssertionError(f"merge kernel differs from plain at {bit0}")
+            raise AssertionError(f"merge kernel differs from plain at {bit0}"
+                                 f" ({name})")
         worst = max(worst, err)
         times.append(ms)
         plain_times.append(plain_ms)
-    return worst, statistics.median(times), statistics.median(plain_times)
+    b0 = torch.tensor([5], dtype=torch.int64, device=device)
+    device_ms = sum(pass_times(f"merge_windows {name} bit0=5", lambda: (
+        merge_cuda.merge_windows(win, block_bits, b0, nwords))).values())
+    # bytes: window words that hold bits, block_bits, bit0 read; the used
+    # prefix and the tail written; a shift and an OR a window word read
+    held = int(((block_bits.to(torch.int64) + 31) // 32).sum())
+    bound = bound_ms(4 * (held + NB + used) + 8 + 16, 4 * held)
+    whole = bound_ms(4 * NB * (W + 1) + 8 + 4 * nwords + 16, 4 * NB * W)
+    ms, plain = statistics.median(times), statistics.median(plain_times)
+    print(f"kernel merge_windows [{name}] NB={NB} median over bit0 "
+          f"ms={ms:.4f} device_ms={device_ms:.4f} plain_ms={plain:.4f} "
+          f"bound_ms={bound[0]:.4f} ({bound[1]}; used prefix) "
+          f"whole_buffer_bound_ms={whole[0]:.4f}")
+    return worst, ms, plain, device_ms, bound, whole
+
+
+def kind_windows(cfg, n_rsi, kind, seed, device):
+    """Kernel 1's windows and bit lengths of n_rsi RSIs of one tests/gen.py
+    kind of samples."""
+    import gen
+
+    from libaec_tpu_torch.kernels import encode_cuda
+
+    rng = np.random.default_rng(seed)
+    raw = torch.from_numpy(np.frombuffer(pack_samples(
+        gen.gen_values(rng, n_rsi * cfg.samples_per_rsi, cfg.bits_per_sample,
+                       cfg.signed, kind), cfg.bits_per_sample, cfg.flags),
+        np.uint8).copy()).to(device)
+    win, block_bits, _ = encode_cuda.encode_fields(
+        cfg, raw, torch.tensor([3], dtype=torch.int32, device=device))
+    return win, block_bits
 
 
 def walk_data(cfg, n_rsi, seed, step):
@@ -204,12 +246,44 @@ def scanned_chunk(cfg, raw):
     return comp, dict(recs), bitunpack.bucket_wf(cfg, recs, tail_bit)
 
 
-def check_decode_kernel(name, cfg, raw, device):
+def popcount32(v):
+    """Set bits of each 32-bit value of an int64 tensor."""
+    v = v - ((v >> 1) & 0x55555555)
+    v = (v & 0x33333333) + ((v >> 2) & 0x33333333)
+    v = (v + (v >> 4)) & 0x0F0F0F0F
+    return ((v * 0x01010101) & 0xFFFFFFFF) >> 24
+
+
+def parse_words(cfg, win, fs_bit, lsb_rel, meta, ref_sample):
+    """Window words the payload parse of a chunk needs, summed over its
+    blocks: none for a zero block; up to the fields' end for a split or
+    an uncompressed block (the FS region ends where the fields start); up
+    to the word that holds the (bs/2)-th set bit for a second-extension
+    block, whose record carries no region end."""
+    bs, m = cfg.block_size, meta.to(torch.int64)
+    kind, k, ref = m & 3, (m >> 2) & 31, (m >> 7) & 1
+    fsb = fs_bit.to(torch.int64)
+    keff = torch.where(kind == 3, cfg.bits_per_sample,
+                       torch.where(kind == 2, k, 0))
+    need = (fsb + lsb_rel.to(torch.int64) + (bs - ref) * keff + 31) // 32
+    w = win.to(torch.int64) & 0xFFFFFFFF   # stream bytes: big-endian words
+    be = ((w & 0xFF) << 24) | (((w >> 8) & 0xFF) << 16) \
+        | (((w >> 16) & 0xFF) << 8) | (w >> 24)
+    be[:, 0] &= torch.full_like(fsb, 0xFFFFFFFF) >> fsb
+    seen = torch.cumsum(popcount32(be), 1)
+    need = torch.where(kind == 1, (seen < bs // 2).sum(1) + 1, need)
+    return int(torch.where(kind == 0, 0, need).sum())
+
+
+def check_decode_kernel(name, cfg, raw, device, profile=False):
     """Kernel 3 against its plain version on one chunk of whole RSIs, at
     the chunk's own bucket width and at every wider width the decode path
-    can choose (WF_BUCKETS and the worst case).  Returns [(wf,
-    max_abs_err, ms, plain_ms, bound_ms)], the deltas at the chunk's own
-    width, the stream and the kernel's device inputs by width."""
+    can choose (WF_BUCKETS and the worst case); with `profile`, also the
+    profiler's mean device time of a launch.  Returns [(wf, max_abs_err,
+    ms, plain_ms, bound_ms, device ms or None, whole-window bound_ms)],
+    the deltas at the chunk's own width, the stream and the kernel's
+    device inputs by width.  bound_ms counts the window words the parse
+    needs (parse_words); the whole-window bound counts every word."""
     from libaec_tpu_torch import native
     from libaec_tpu_torch.decode import WF_BUCKETS, scan_record_arrays
     from libaec_tpu_torch.kernels import decode_cuda
@@ -230,17 +304,28 @@ def check_decode_kernel(name, cfg, raw, device):
         want, plain_ms = timed(
             lambda: decode_cuda.decode_blocks_plain(cfg, *args), 3, warmup=1)
         err = max_abs_err(got, want)
+        # records read, the window words the parse needs read, bs deltas
+        # written; ~20 integer operations a sample of a block with a
+        # payload (FS position, field, unmapping)
+        NB, bs = got.shape
+        live = int(((args[3] & 3) != 0).sum()) * bs
+        bound = bound_ms(4 * (parse_words(cfg, *args) + 4 * NB + NB * bs),
+                         20 * live)
+        whole = bound_ms(4 * NB * (wf + 4 + bs), 20 * live)
+        device_ms = sum(pass_times(
+            f"decode_blocks {name} Wf={wf}",
+            lambda: decode_cuda.decode_blocks(cfg, *args)).values()) \
+            if profile else None
         print(f"kernel decode_blocks [{name}] n_rsi={n_rsi} NB={got.shape[0]}"
               f" Wf={wf} bucket={bucket} max_abs_err={err} ms={ms:.4f} "
-              f"plain_ms={plain_ms:.4f}")
+              + (f"device_ms={device_ms:.4f} " if profile else "")
+              + f"plain_ms={plain_ms:.4f} bound_ms={bound[0]:.4f} "
+              f"({bound[1]}; words parsed) "
+              f"whole_window_bound_ms={whole[0]:.4f}")
         if err:
             raise AssertionError(f"decode kernel differs from plain ({name}, "
                                  f"Wf {wf})")
-        # windows and four records read once, bs deltas written once;
-        # ~40 integer operations a sample (rank select, bisection, field)
-        rows.append((wf, err, ms, plain_ms, bound_ms(
-            4 * got.shape[0] * (wf + 4 + cfg.block_size),
-            40 * got.numel())[0]))
+        rows.append((wf, err, ms, plain_ms, bound, device_ms, whole))
         if deltas is None:
             deltas = got
     return rows, deltas, comp, args_by_wf
@@ -252,7 +337,8 @@ def check_fused_kernel(name, cfg, raw, comp, args_by_wf, device):
     width; the bytes do not depend on the width, so every wider width is
     held against the same bytes) and against native.decode of the chunk's
     stream, beside kernels 3 + 4 on the same inputs.  Returns [(wf,
-    max_abs_err, ms, plain_ms, two-kernel ms)]."""
+    max_abs_err, ms, plain_ms, two-kernel ms, window words the parse
+    needs, blocks with a payload)]."""
     from libaec_tpu_torch import native
     from libaec_tpu_torch.kernels import (decode_cuda, decode_fused_cuda,
                                           unpredict_cuda)
@@ -280,7 +366,8 @@ def check_fused_kernel(name, cfg, raw, comp, args_by_wf, device):
               f"kernels_3_4_ms={two_ms:.4f}")
         if err or not native_ok or not torch.equal(got, two):
             raise AssertionError(f"fused kernel differs ({name}, Wf {wf})")
-        rows.append((wf, err, ms, plain_ms, two_ms))
+        rows.append((wf, err, ms, plain_ms, two_ms, parse_words(cfg, *args),
+                     int(((args[3] & 3) != 0).sum())))
     return rows
 
 
@@ -865,7 +952,7 @@ def main():
                                   AEC_NOT_ENFORCE, Config)
     from libaec_tpu_torch import native
     from libaec_tpu_torch.encode import default_rsis_per_chunk
-    from libaec_tpu_torch.kernels import _build, encode_cuda, merge_cuda
+    from libaec_tpu_torch.kernels import _build, encode_cuda
     from libaec_tpu_torch.ops.u32 import u32_to_bits
 
     device = torch.device("cuda", 0)
@@ -937,15 +1024,19 @@ def main():
         + 4 * nb1 * (w0 + 1) + 4,
         nb1 * bench_cfg.block_size * (28 + 2 * (bench_cfg.kmax + 1)))
 
-    # 4. kernel 2 against its plain version on the main path's chunk
-    err2, ms2, plain2 = check_merge_kernel(bench_cfg, bench[0], bench[1],
-                                           device)
-    # windows, bit lengths, offsets and bit0 read, the word buffer and the
-    # tail written; a shift and an OR or store for each window word
-    nwords = merge_cuda.word_count(bench_cfg, nb1,
-                                   encode_cuda.window_words(bench_cfg) - 1)
-    bound2 = bound_ms(4 * nb1 * (w0 + 3) + 8 + 4 * nwords + 16,
-                      4 * nb1 * w0)
+    # 4. kernel 2 against its plain version on the main path's chunk: the
+    #    windows of every tests/gen.py kind (its ms, bound and plain ms go
+    #    to the kernels' line), then of `lowentropy` and of `midentropy`
+    #    samples alone
+    err2, ms2, plain2, _, bound2, _ = check_merge_kernel(
+        "all kinds", bench_cfg, bench[0], bench[1], device)
+    n_enc = default_rsis_per_chunk(bench_cfg)
+    for seed, kind in enumerate(("lowentropy", "midentropy")):
+        win, block_bits = kind_windows(bench_cfg, n_enc, kind, 40 + seed,
+                                       device)
+        err2 = max(err2, check_merge_kernel(kind, bench_cfg, win, block_bits,
+                                            device)[0])
+        del win, block_bits
 
     # 5. the encode main path
     launches, streams = run_slice(bench_cfg, SLICE_MIB, device,
@@ -973,15 +1064,23 @@ def main():
     )]
     err3, bench3, chunks = 0, [], {}
     for name, cfg, raw in dec_checks:
-        rows, deltas, comp, args_by_wf = check_decode_kernel(name, cfg, raw,
-                                                             device)
+        rows, deltas, comp, args_by_wf = check_decode_kernel(
+            name, cfg, raw, device, profile=cfg == bench_cfg)
         err3 = max(err3, *(r[1] for r in rows))
         if cfg == bench_cfg:
             bench3 += rows
         chunks[name] = (cfg, raw, deltas, comp, args_by_wf)
     ms3 = statistics.median(r[2] for r in bench3)
     plain3 = statistics.median(r[3] for r in bench3)
-    bound3 = (statistics.median(r[4] for r in bench3), "bytes")
+    bounds3 = sorted(r[4] for r in bench3)
+    bound3 = bounds3[len(bounds3) // 2]
+    print(f"kernel decode_blocks at the bench chunk (NB {n_bench * 256}), "
+          f"median over widths {sorted({r[0] for r in bench3})}: "
+          f"ms={ms3:.4f} device_ms="
+          f"{statistics.median(r[5] for r in bench3):.4f} "
+          f"bound_ms={bound3[0]:.4f} ({bound3[1]}; words parsed) "
+          f"whole_window_bound_ms="
+          f"{statistics.median(r[6][0] for r in bench3):.4f}")
 
     # 7. kernel 4 against its plain version on those chunks' deltas, then
     #    kernels 4 and 5 on three inputs at the bench chunk
@@ -1034,12 +1133,21 @@ def main():
     print(f"kernel decode_fused at the bench chunk (NB {n_bench * 256}), "
           f"median over widths {sorted({r[0] for r in bench6})}: "
           f"ms={ms6:.4f} kernels_3_4_ms={two6:.4f}")
-    # windows and records read, bytes written; kernel 3's and kernel 4's
-    # operations
+    # records and the window words the parse needs read, bytes written;
+    # kernel 3's operations on blocks with a payload and kernel 4's on
+    # every sample
     nb6 = n_bench * bench_cfg.rsi
-    bound6 = (statistics.median(bound_ms(
-        4 * nb6 * (r[0] + 4) + n4 * bench_cfg.bytes_per_sample,
-        n4 * (52 + bench_cfg.bytes_per_sample))[0] for r in bench6), "bytes")
+    bounds6 = sorted(bound_ms(
+        4 * (r[5] + 4 * nb6) + n4 * bench_cfg.bytes_per_sample,
+        20 * bench_cfg.block_size * r[6]
+        + n4 * (12 + bench_cfg.bytes_per_sample)) for r in bench6)
+    bound6 = bounds6[len(bounds6) // 2]
+    whole6 = statistics.median(bound_ms(
+        4 * nb6 * (r[0] + 4) + n4 * bench_cfg.bytes_per_sample, 0)[0]
+        for r in bench6)
+    print(f"kernel decode_fused at the bench chunk: bound_ms="
+          f"{bound6[0]:.4f} ({bound6[1]}; words parsed) "
+          f"whole_window_bound_ms={whole6:.4f}")
 
     # 8. kernel 5, the byte layout (kernel 4 without preprocessing) and
     #    kernel 4 in one pass, on the 3-byte decode path's chunk: deltas

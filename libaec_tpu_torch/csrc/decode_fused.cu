@@ -43,8 +43,9 @@
 // Bound on this card: device-memory traffic is the least any decoder
 // could move (windows and records read once, output bytes written once),
 // some ten microseconds for a chunk.  What it takes is instruction slots:
-// the parse is some 500 instructions a block (kernel 3 alone is bound by
-// them), the scan some 170 a group of 256 samples, a tenth of the parse.
+// the parse of a split block is some hundreds of instructions, of a zero
+// block a few dozen (decode_block.cuh; kernel 3 alone is bound by them),
+// the scan some 170 a group of 256 samples.
 // So the design is about keeping an SM's schedulers full of parse warps:
 // the host picks the smallest group whose thread blocks are all on the
 // card at once, BLOCKS_PER_SM to an SM (a 512-RSI chunk: 256 blocks of 2
@@ -71,7 +72,7 @@ constexpr int BLOCKS_PER_SM = 2;   // thread blocks an SM holds at once
 constexpr int SKIP_STEP = 0;
 
 // dynamic shared memory in words: tin[2][group][pitch], carry[MAX_GROUP],
-// then the parse warps' window and rank tables
+// then the parse warps' windows and FS positions
 constexpr size_t shared_words(int group, int pitch) {
     return (size_t)2 * group * pitch + MAX_GROUP + 2 * FUSED_WARPS * MAXWF;
 }
@@ -114,7 +115,7 @@ decode_fused_kernel(const uint32_t* __restrict__ win,
     // warps 0 .. chainers - 1 scan, the others parse
     const int parser = warp - chainers, parsers = FUSED_WARPS - chainers;
     uint32_t* s_win = s_carry + MAX_GROUP + warp * MAXWF;
-    uint32_t* s_cum = s_win + FUSED_WARPS * MAXWF;
+    uint32_t* s_pos = s_win + FUSED_WARPS * MAXWF;
     const long long r0 = (long long)blockIdx.x * group;
     const int rows = (int)(p.n_rsi - r0 < group ? p.n_rsi - r0 : group);
     const long long row_bytes = (long long)p.S * BSZ;
@@ -160,7 +161,7 @@ decode_fused_kernel(const uint32_t* __restrict__ win,
                 const long long blk = (r0 + r) * rsi + b0 + b;
                 uint32_t o[2] = {0, 0};
                 if (SKIP_STEP != 2)
-                    decode_block(win + blk * wf, s_win, s_cum, fs_bit_a[blk],
+                    decode_block(win + blk * wf, s_win, s_pos, fs_bit_a[blk],
                                  lsb_rel_a[blk], meta_a[blk], ref_a[blk], wf,
                                  bs, bps, lane, o);
 #pragma unroll
@@ -168,7 +169,7 @@ decode_fused_kernel(const uint32_t* __restrict__ win,
                     const int j = lane + 32 * h;
                     if (j < bs) dst[r * pitch + b * bs + j] = o[h];
                 }
-                __syncwarp();  // the next task rewrites s_win, s_cum
+                __syncwarp();  // the next task rewrites s_win, s_pos
             }
         }
         // slab i is parsed and slab i - 1 scanned: each step of the next

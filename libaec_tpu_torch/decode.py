@@ -395,13 +395,20 @@ def decode_buffers(datas, cfg: Config, out_sizes, device="cuda",
     output, hands every stream its rows and runs the native tail of each
     stream that ends in the chunk, so results finish in order while later
     chunks are dispatched.  At most MAX_INFLIGHT chunks are outstanding.
-    `fused` as decode_buffer_device.  A CUDA device that is missing, a
-    native library that cannot be built and a config outside the kernel
-    gates raise; nothing falls back."""
+    `fused` as decode_buffer_device.
+
+    A config outside the kernel gates (block sizes under 8, as SZIP's 2-6,
+    or over 64) decodes each stream with native.decode, the route
+    decode_buffer_status takes for it.  A CUDA device that is missing for a
+    config inside the gates, and a native library that cannot be built,
+    raise; nothing falls back."""
     datas = [d if isinstance(d, bytes) else bytes(d) for d in datas]
     n = len(datas)
     if n == 0:
         return []
+    if not _kernels_supported(cfg):
+        return [_native.decode(d, size, cfg)
+                for d, size in zip(datas, out_sizes)]
     device = torch.device(device)
     _check_device_route(cfg, device)
     rsi_bytes = cfg.rsi_len_bytes

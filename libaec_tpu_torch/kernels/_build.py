@@ -35,8 +35,8 @@ SIGNATURES = {
     # mask, stream
     "aec_encode_fields": [P, P, P, P, P, P, P, P, P, LL,
                           I, I, I, I, I, I, I, I, I, I, U, U, U, P],
-    # win, off, block_bits, words, tail, nb, w, nwords, stream
-    "aec_merge_windows": [P, P, P, P, P, LL, I, LL, P],
+    # win, block_bits, bit0, words, tail, tile sums, nb, w, nwords, stream
+    "aec_merge_windows": [P, P, P, P, P, P, LL, I, LL, P],
     # win, fs_bit, lsb_rel, meta, ref_sample, out, nb, wf, bs, bps, stream
     "aec_decode_blocks": [P, P, P, P, P, P, LL, I, I, I, P],
     # deltas, out, n_rsi, S, bsz, msb, pp, signed_path, sign_ext, xmax,

@@ -59,3 +59,102 @@ def merge_windows(win, block_bits, bit0, nwords):
     total = off[-1:] + bb[-1:] if NB else bit0.clone()
     tail = torch.cat([total, total & 7])
     return to_bits(swap32(buf[:nwords])), tail
+
+
+def _window_part(w, j, s):
+    """Block j's bits in the word whose first bit is window bit s >= 1 of
+    the block (merge.cu's window_part), for tensors j, s."""
+    W = w.shape[1]
+    a, r = s >> 5, s & 31
+    hi = torch.where(a < W, w[j, a.clamp(0, W - 1)], 0)
+    lo = torch.where((r > 0) & (a + 1 < W), w[j, (a + 1).clamp(0, W - 1)],
+                     0)
+    return ((hi << r) | (lo >> (32 - r))) & MASK32
+
+
+def merge_windows_owned(win, block_bits, bit0, nwords, tile=256):
+    """Kernel 2's design (csrc/merge.cu) as tensor code: the same words as
+    merge_windows over the used prefix, gathered by the word's owner.
+
+    Blocks form tiles of `tile`; a tile's sum and exclusive prefix give its
+    first bit, as the kernel's two launches do.  The tile owns the words
+    whose first bit lies in its blocks; each such word ORs the windows of
+    the block that holds its first bit and of every block after it that
+    starts inside the word, within the tile.  A tile's last word may reach
+    past the tile's bits: its part from the following tiles' blocks is
+    gathered apart (the kernel's warp 0).  Word 0 is written zero.
+
+    Returns (words int32 [nwords], zero past the used prefix; tail as
+    merge_windows; writes int64 [used words]: how many times each word of
+    the used prefix was written -- the design writes each exactly once)."""
+    w = from_bits(win)
+    NB = w.shape[0]
+    dev = w.device
+    bb = block_bits.to(torch.int64)
+    T = -(-NB // tile)
+    rows = torch.cat([bb, bb.new_zeros(T * tile - NB)]).view(T, tile)
+    agg = rows.sum(1)
+    local = torch.cumsum(rows, 1) - rows          # the tile's own prefix
+    base = 32 + bit0.to(torch.int64) + torch.cumsum(agg, 0) - agg
+    end = base + agg
+    start = (base[:, None] + local).reshape(-1)[:NB]  # buffer bits
+    total = end[-1:] - 32
+    used = (int(total) + 63) // 32
+    tiles = torch.arange(T, device=dev)
+    lo = torch.where(tiles == 0, 1, (base + 31) >> 5)
+    hi = (end + 31) >> 5
+    spill = (tiles < T - 1) & (hi > lo) & ((hi << 5) > end)
+    own = torch.where(spill, hi - 1, hi).clamp(max=nwords)
+    n_own = (own - lo).clamp(min=0)
+
+    # words a thread of tile t writes: [lo, own), from the tile's blocks
+    tile_of = torch.repeat_interleave(tiles, n_own)
+    first = torch.repeat_interleave(torch.cumsum(n_own, 0) - n_own, n_own)
+    wi = lo[tile_of] + torch.arange(len(tile_of), device=dev) - first
+    # spill words: the tile's blocks by the same gather, then the rest
+    sp = tiles[spill & (hi - 1 < nwords)]
+    wi = torch.cat([wi, hi[sp] - 1])
+    tile_of = torch.cat([tile_of, sp])
+
+    n_blk = torch.clamp(NB - tiles * tile, max=tile)
+    x = 32 * wi - base[tile_of]                   # first bit, tile-relative
+    k = torch.searchsorted(local[tile_of].contiguous(), x[:, None],
+                           right=True)[:, 0]
+    j = (k - 1).clamp(min=0)
+    val = torch.zeros_like(wi)
+    while True:  # blocks of the tile that start inside the word
+        on = j < n_blk[tile_of]
+        jc = torch.where(on, j, 0)
+        s_rel = local[tile_of, jc.clamp(max=tile - 1)]
+        on &= s_rel < x + 32
+        if not bool(on.any()):
+            break
+        blk = tile_of * tile + jc
+        take = on & (bb[blk.clamp(max=NB - 1)] > 0)
+        part = _window_part(w, blk.clamp(max=NB - 1), x + 32 - s_rel)
+        val |= torch.where(take, part, 0)
+        j = j + 1
+    n_in = len(wi) - len(sp)
+    stop = 32 * (hi[sp])                          # the spill words' ends
+    jb = (sp + 1) * tile
+    spilled = torch.zeros_like(stop)
+    while len(sp):  # blocks of the following tiles inside the spill word
+        on = jb < NB
+        jc = torch.where(on, jb, 0)
+        on &= start[jc] < stop
+        if not bool(on.any()):
+            break
+        take = on & (bb[jc] > 0)
+        part = _window_part(w, jc, stop - start[jc])
+        spilled |= torch.where(take, part, 0)
+        jb = jb + 1
+    val[n_in:] |= spilled
+
+    buf = torch.zeros(nwords, dtype=torch.int64, device=dev)
+    writes = torch.zeros(used, dtype=torch.int64, device=dev)
+    buf[wi] = val
+    writes.index_add_(0, wi, torch.ones_like(wi))
+    if nwords:
+        writes[0] += 1                            # word 0, zero
+    tail = torch.cat([total, total & 7])
+    return to_bits(swap32(buf)), tail, writes

@@ -157,6 +157,81 @@ def decode_blocks(cfg, win, fs_bit, lsb_rel, meta, ref_sample):
     return to_bits(compose_blocks(cfg, val, fs, meta, ref_sample))
 
 
+def decode_payload_region(cfg, win, fs_bit, lsb_rel, meta):
+    """Kernel 3's parse (csrc/decode_block.cuh) as tensor code: the same
+    (val, fs) as decode_payload, reading only what the kernel reads.
+
+    FS value j ends at the payload's (j+1)-th set bit; a block's FS
+    positions come from words [0, nsearch) alone, up to the one that holds
+    its n_fs-th set bit (the FS region, where the kernel's lanes write each
+    set bit's position at its rank), its fields read words [0, nfield) (up
+    to the one after the last field's end), and every other window word is
+    zeroed before the parse, as the kernel never stages it; zero blocks
+    read no window at all, and blocks with no FS values (zero,
+    uncompressed) look for none.  Returns (val, fs, nsearch, nfield), the
+    last two int64 [NB]."""
+    bs, bps = cfg.block_size, cfg.bits_per_sample
+    dev = win.device
+    fs_bit, lsb_rel, meta = (from_bits(t)[:, None]
+                             for t in (fs_bit, lsb_rel, meta))
+    kind = meta & 3
+    k = (meta >> 2) & 31
+    ref = (meta >> 7) & 1
+    is_se, is_split = kind == KIND_SE, kind == KIND_SPLIT
+    NB, Wf = win.shape
+    n_fs = torch.where(is_split, bs - ref, torch.where(is_se, bs // 2, 0))
+    keff = torch.where(kind == KIND_UNCOMP, bps, torch.where(is_split, k, 0))
+    q0 = fs_bit + lsb_rel
+    nfield = torch.where(keff > 0, torch.clamp(
+        ((q0 + (bs - ref) * keff) >> 5) + 2, max=Wf), 0)
+
+    w = swap32(win)
+    w[:, :1] &= torch.full_like(fs_bit, MASK32) >> fs_bit
+    pos = torch.arange(Wf, device=dev)[None, :]
+    cum = torch.cumsum(popcount32(w), dim=1)
+    reached = (cum >= n_fs) & (n_fs > 0)
+    nsearch = torch.where(reached.any(1, keepdim=True),
+                          reached.int().argmax(1, keepdim=True) + 1,
+                          torch.where(n_fs > 0, Wf, 0))
+    staged = torch.maximum(nsearch, nfield)
+    w = torch.where((pos < staged) & (kind != 0), w, 0)
+
+    # FS: bit l of word i (MSB first) is tested by lane l; a set bit of
+    # rank r < n_fs writes its payload position 32 i + l - fs_bit to sel[r]
+    j = torch.arange(bs, device=dev).expand(NB, bs)
+    lane = torch.arange(32, device=dev)
+    bits = ((w[:, :, None] >> (31 - lane)) & 1).reshape(NB, Wf * 32)
+    bit_word = torch.arange(Wf * 32, device=dev)[None, :] >> 5
+    bits = bits * (bit_word < nsearch)
+    rank = torch.cumsum(bits, dim=1) - 1
+    hit = (bits == 1) & (rank < n_fs)
+    row, col = hit.nonzero(as_tuple=True)
+    sel = torch.zeros(NB, bs, dtype=torch.int64, device=dev)
+    sel[row, rank[row, col]] = _as_i32(col - fs_bit[row, 0])
+    prev = torch.cat([torch.full_like(sel[:, :1], -1), sel[:, :-1]], dim=1)
+    fs = torch.where(j < n_fs, (sel - prev - 1) & MASK32, 0)
+
+    pj = torch.maximum(j, ref) - ref
+    q = (q0 + pj * keff) & MASK32
+    qw, qb = q >> 5, q & 31
+    w0 = torch.where(qw < nfield, _gather_words(w, qw), 0)
+    w1 = torch.where(qw + 1 < nfield, _gather_words(w, qw + 1), 0)
+    hi = (w0 << qb) & MASK32
+    lo = torch.where(qb == 0, 0, w1 >> (32 - qb.clamp(min=1)))
+    field = torch.where(keff == 0, 0, (hi | lo) >> (32 - keff.clamp(min=1)))
+
+    fs_shift = torch.cat([torch.zeros_like(fs[:, :1]), fs[:, :-1]], dim=1)
+    fsp = torch.where(ref == 1, fs_shift, fs)
+    val = ((fsp << k) & MASK32) | field
+    return val, fs, nsearch[:, 0], nfield[:, 0]
+
+
+def decode_blocks_region(cfg, win, fs_bit, lsb_rel, meta, ref_sample):
+    """decode_blocks through decode_payload_region: int32 [NB, bs]."""
+    val, fs, _, _ = decode_payload_region(cfg, win, fs_bit, lsb_rel, meta)
+    return to_bits(compose_blocks(cfg, val, fs, meta, ref_sample))
+
+
 def bucket_wf(cfg, recs, tail_bit):
     """Twin of _bucket_wf (libaec_tpu/decode.py:181-199): the smallest
     width of WF_BUCKETS that covers every payload span of the chunk, or

@@ -16,6 +16,15 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from gen import KINDS, gen_values  # noqa: E402
+from torch_kernel_cases import (  # noqa: E402
+    DECODE_DATA,
+    MERGE_CASES,
+    chunk_records,
+    decode_widths,
+    merge_buffer_words,
+    synthetic_windows,
+)
+from torch_kernel_cases import DECODE_CONFIGS as KIND_CONFIGS  # noqa: E402
 
 import libaec_tpu_torch  # noqa: E402
 from chip_smoke import pack_samples  # noqa: E402
@@ -117,17 +126,45 @@ def test_encode_kernel_unaligned_input(dev, cfg, offset):
         assert torch.equal(g.cpu(), w)
 
 
+def hold_merge(dev, win, bb, bit0, nwords):
+    """Kernel 2 against the plain merge: the tail and the words of the
+    used prefix (the kernel leaves the rest of the buffer unwritten)."""
+    b0 = torch.tensor([bit0], dtype=torch.int64)
+    want, want_tail = bitpack.merge_windows(win, bb, b0, nwords)
+    got, tail = merge_cuda.merge_windows(win.to(dev), bb.to(dev), b0.to(dev),
+                                         nwords)
+    assert got.shape == want.shape
+    assert torch.equal(tail.cpu(), want_tail)
+    used = merge_cuda.used_words(int(want_tail[0]))
+    assert torch.equal(got[:used].cpu(), want[:used])
+
+
 @pytest.mark.parametrize("bit0", range(8))
 def test_merge_kernel_matches_plain(dev, bit0):
     win, bb, _ = encode_cuda.encode_fields_plain(
         BENCH, chunk(BENCH, 24, 5), torch.tensor([0], dtype=torch.int32))
     nwords = merge_cuda.word_count(BENCH, win.shape[0], win.shape[1] - 1)
-    b0 = torch.tensor([bit0], dtype=torch.int64)
-    want = bitpack.merge_windows(win, bb, b0, nwords)
-    got = merge_cuda.merge_windows(win.to(dev), bb.to(dev), b0.to(dev),
-                                   nwords)
-    for g, w in zip(got, want):
-        assert torch.equal(g.cpu(), w)
+    hold_merge(dev, win, bb, bit0, nwords)
+
+
+@pytest.mark.parametrize("bit0", range(8))
+@pytest.mark.parametrize("name", list(MERGE_CASES))
+def test_merge_kernel_edges(dev, name, bit0):
+    """Runs of up to 63 zero-bit blocks, many blocks in one word, words
+    that reach past a tile's bits into the next tiles', block counts that
+    are not a multiple of the tile (tests/torch_kernel_cases.py)."""
+    win, bb, _ = MERGE_CASES[name]()
+    hold_merge(dev, win, bb, bit0, merge_buffer_words(*win.shape))
+
+
+@pytest.mark.parametrize("bit0", [0, 7])
+@pytest.mark.parametrize("shape", ["full", "runs"])
+def test_merge_kernel_many_tiles(dev, shape, bit0):
+    """More tiles than a thread block has threads: a tile sums the sums
+    of the tiles before it in several rounds."""
+    NB = 300 * merge_cuda.TILE + 17
+    win, bb = synthetic_windows(np.random.default_rng(6), NB, 3, shape)
+    hold_merge(dev, win, bb, bit0, merge_buffer_words(*win.shape))
 
 
 @pytest.mark.parametrize("kind", ["lowentropy", "zero_runs", "random"])
@@ -212,6 +249,24 @@ def test_decode_kernel_matches_plain(dev, cfg, kind):
     widths = sorted({w for w in (*WF_BUCKETS, wf_max)
                      if bucket <= w <= wf_max})
     for wf in widths:
+        recs["win"] = native.fill_windows(comp, recs["fs_off"],
+                                          recs["meta"], wf)
+        args = [u32_to_bits(a) for a in scan_record_arrays(recs)]
+        want = decode_cuda.decode_blocks_plain(cfg, *args)
+        got = decode_cuda.decode_blocks(cfg, *(a.to(dev) for a in args))
+        assert torch.equal(got.cpu(), want), wf
+
+
+@pytest.mark.parametrize("data", DECODE_DATA)
+@pytest.mark.parametrize("name", list(KIND_CONFIGS))
+def test_decode_kernel_kinds(dev, name, data):
+    """Kernel 3 on blocks of every kind (zero, second extension, split,
+    uncompressed; with and without a reference) and on tests/gen.py data,
+    block sizes 8 to 64 and 3-byte samples, at every width the decode path
+    can choose."""
+    cfg = KIND_CONFIGS[name]
+    comp, recs, bucket = chunk_records(cfg, data, len(name) + len(data))
+    for wf in decode_widths(cfg, bucket):
         recs["win"] = native.fill_windows(comp, recs["fs_off"],
                                           recs["meta"], wf)
         args = [u32_to_bits(a) for a in scan_record_arrays(recs)]

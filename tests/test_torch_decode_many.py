@@ -127,9 +127,31 @@ def test_many_env_and_refusals(monkeypatch):
     monkeypatch.setenv("LIBAEC_TPU_FUSED_DECODE", "1")
     got = libaec_tpu_torch.decode_buffers(comps, CFG, sizes, device="cpu")
     assert calls and got[0] == native.decode(comps[0], sizes[0], CFG)
-    big = Config(16, 128, 16, AEC_NOT_ENFORCE)
-    with pytest.raises(ValueError):
-        libaec_tpu_torch.decode_buffers(comps, big, sizes, device="cpu")
+    big = Config(16, 128, 16, AEC_NOT_ENFORCE)  # outside the kernel gates
+    assert libaec_tpu_torch.decode_buffers(comps, big, sizes) == [
+        native.decode(c, s, big) for c, s in zip(comps, sizes)]
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError):
             libaec_tpu_torch.decode_buffers(comps, CFG, sizes)
+
+
+@pytest.mark.parametrize("bs,flags", [
+    (128, AEC_NOT_ENFORCE),                        # over the gates
+    (4, AEC_NOT_ENFORCE | PP),                     # SZIP's small blocks
+    (6, AEC_NOT_ENFORCE | PP | MSB),
+])
+def test_many_outside_the_gates(bs, flags, monkeypatch):
+    """A config outside the kernel gates decodes every stream with
+    native.decode, whatever the device argument and whether a card is
+    present: what the loop of native.decode and decode_buffers_tpu
+    return."""
+    cfg = Config(16, bs, 16, flags)
+    assert not torch_decode._kernels_supported(cfg)
+    comps, sizes = make_streams(cfg, seed=bs)
+    want = [native.decode(c, s, cfg) for c, s in zip(comps, sizes)]
+    assert [w[0] for w in want[:4]] == [0, 0, 0, 0]
+    monkeypatch.setattr(torch_decode, "decode_chunk", None)  # never reached
+    for device in ("cpu", "cuda"):
+        assert libaec_tpu_torch.decode_buffers(
+            comps, cfg, sizes, device=device, chunk_rsis=2) == want
+    assert decode_buffers_tpu(comps, cfg, sizes, chunk_rsis=2) == want
