@@ -18,8 +18,18 @@ native encoder and a native decode round trip, and
 libaec_tpu_torch.decode_buffer_status over the two streams it made, held
 against the input and the native decoder; the 16-bit streams once more on
 the one-kernel route (fused=True); and libaec_tpu_torch.decode_buffers
-over 256 streams of 1 MiB on both routes.  Imports neither JAX nor the JAX
-package: the bit-exact reference is libaec_tpu_torch.native.  Exits
+over 256 streams of 1 MiB on both routes.  Then the surfaces users call,
+each phase holding its launch counts to the kernels of its route: the SZ
+layer (libaec_tpu_torch.szip) on an HDF5-shaped dataset of 128 chunks of
+1 MiB, compressed chunk by chunk and as one 64 MiB buffer on the card,
+decompressed by sz_decompress_batch, held against the C szlib surface of
+the native library, the input and the per-chunk decompress, with padded
+scanlines and 32-bit pixels besides; the streaming calls
+(libaec_tpu_torch.stream) on 32 MiB fed in uneven pieces and drained
+through 64 KiB, held against native.encode, and drip-fed back; the `aec`
+tool (`python -m libaec_tpu_torch.cli`) encoding and decoding a 64 MiB
+file and a 48 MiB file of 3-byte samples.  Imports neither JAX nor the
+JAX package: the bit-exact reference is libaec_tpu_torch.native.  Exits
 non-zero, and prints no result line, on any failure or when no CUDA device
 is present.
 
@@ -787,6 +797,390 @@ def run_many(cfg, device, seed, n_streams=256, mib=1):
     return out
 
 
+def reset_counts():
+    """Every kernel wrapper's launch count to 0."""
+    from libaec_tpu_torch.kernels import encode_cuda, merge_cuda
+
+    encode_cuda.launches = merge_cuda.launches = 0
+    for mod, attr in decode_counters().values():
+        setattr(mod, attr, 0)
+
+
+def check_launched(label, counts, route):
+    """Every wrapper of the route launched, and no other."""
+    print(f"slice launches [{label}] {json.dumps(counts)}")
+    for name, count in counts.items():
+        if (count > 0) != (name in route):
+            raise AssertionError(f"{label}: {name} launched {count} times; "
+                                 f"the route is {route}")
+
+
+ENCODE_ROUTE = ["encode_fields", "merge_windows"]
+
+
+def c_sz_compress(src, param):
+    """SZ_BufftoBuffCompress of the port's native library (the szlib
+    surface in C, libaec_abi.cpp): its stream, or an error."""
+    import ctypes
+
+    from libaec_tpu_torch import native
+
+    class SZCom(ctypes.Structure):
+        _fields_ = [(name, ctypes.c_int) for name in (
+            "options_mask", "bits_per_pixel", "pixels_per_block",
+            "pixels_per_scanline")]
+
+    native.get_lib()
+    lib = ctypes.CDLL(str(native.library_path()))
+    dest = ctypes.create_string_buffer(len(src) * 2 + 4096)
+    dlen = ctypes.c_size_t(len(dest))
+    status = lib.SZ_BufftoBuffCompress(
+        dest, ctypes.byref(dlen), src, len(src), ctypes.byref(SZCom(
+            param.options_mask, param.bits_per_pixel,
+            param.pixels_per_block, param.pixels_per_scanline)))
+    if status != 0:
+        raise AssertionError(f"SZ_BufftoBuffCompress failed ({status})")
+    return dest.raw[:dlen.value]
+
+
+def sz_chunks(rng, n_chunks, bpp, msb):
+    """n_chunks HDF5 chunks of 1 MiB of bpp-bit pixels, `lowentropy` and
+    `midentropy` alternating (64-bit pixels: 8-bit planes of them)."""
+    import gen
+
+    from libaec_tpu_torch import AEC_DATA_MSB
+
+    size = 4 if bpp > 16 else 2 if bpp > 8 else 1
+    flags = AEC_DATA_MSB if msb else 0
+    return [pack_samples(gen.gen_values(
+        rng, (1 << 20) // size, bpp, False,
+        ("lowentropy", "midentropy")[i % 2]), bpp, flags)
+        for i in range(n_chunks)]
+
+
+def run_sz(device, seed):
+    """The SZ layer on an HDF5-shaped dataset: 128 chunks of 1 MiB of
+    16-bit pixels, SZ_MSB | SZ_NN, 32 pixels a block, 1024 a scanline
+    (H5Pset_szip's shapes).  Each chunk compressed by
+    sz_buffto_buff_compress (native: under 4 MiB), 64 of them once as one
+    64 MiB buffer (kernels 1 and 2), both held against the C szlib
+    surface; all 128 decompressed by sz_decompress_batch (kernels 3 and
+    4), held against per-chunk sz_buffto_buff_decompress and the input;
+    the 64 MiB stream by sz_buffto_buff_decompress on the card.  Then 32
+    chunks with 1000 pixels a scanline (the padding path) and 32 of
+    32-bit pixels (the interleave path), compressed natively and
+    decompressed by sz_decompress_batch."""
+    from libaec_tpu_torch import szip
+    from libaec_tpu_torch.cli import launch_counts
+
+    rng = np.random.default_rng(seed)
+    mask = szip.SZ_MSB_OPTION_MASK | szip.SZ_NN_OPTION_MASK
+    param = szip.SZCom(mask, 16, 32, 1024)
+    chunks = sz_chunks(rng, 128, 16, True)
+    total = sum(len(c) for c in chunks)
+
+    t0 = time.perf_counter()
+    comps = [szip.sz_buffto_buff_compress(c, param, device=device)
+             for c in chunks]
+    native_secs = time.perf_counter() - t0
+    if any(c != c_sz_compress(d, param) for c, d in zip(comps, chunks)):
+        raise AssertionError("SZ chunk streams differ from the C surface")
+
+    big = b"".join(chunks[:64])
+    szip.sz_buffto_buff_compress(big[: 8 << 20], param, device=device)
+    reset_counts()
+    t0 = time.perf_counter()
+    big_comp = szip.sz_buffto_buff_compress(big, param, device=device)
+    big_secs = time.perf_counter() - t0
+    check_launched("sz compress 64 MiB", launch_counts(), ENCODE_ROUTE)
+    if big_comp != c_sz_compress(big, param):
+        raise AssertionError("SZ 64 MiB stream differs from the C surface")
+    print(f"slice sz_buffto_buff_compress [64 MiB, 16-bit ppb 32 pps 1024] "
+          f"bytes={len(big)} seconds={big_secs:.4f} "
+          f"MiB/s={len(big) / big_secs / 2**20:.2f} "
+          f"per_chunk_native_MiB/s={total / native_secs / 2**20:.2f} "
+          f"ratio={len(big) / len(big_comp):.4f} identical_to_c_szlib=True")
+
+    sizes = [len(c) for c in chunks]
+    t0 = time.perf_counter()
+    singles = [szip.sz_buffto_buff_decompress(c, param, n, device=device)
+               for c, n in zip(comps, sizes)]
+    single_secs = time.perf_counter() - t0
+    if singles != chunks:
+        raise AssertionError("sz_buffto_buff_decompress differs from input")
+    szip.sz_decompress_batch(comps[:8], param, sizes[:8], device=device)
+    for again in (False, True):
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        batch = szip.sz_decompress_batch(comps, param, sizes, device=device)
+        secs = time.perf_counter() - t0
+        if batch != singles:
+            raise AssertionError("sz_decompress_batch differs from the "
+                                 "per-chunk decompress")
+        tag = "second call" if again else "first call"
+        print(f"slice sz_decompress_batch [128 x 1 MiB, {tag}] "
+              f"bytes={total} seconds={secs:.4f} "
+              f"MiB/s={total / secs / 2**20:.2f} "
+              f"per_chunk_native_MiB/s={total / single_secs / 2**20:.2f} "
+              f"identical_to_single_and_input=True")
+        check_launched(f"sz batch, {tag}", launch_counts(),
+                       decode_route(param_cfg(param), False))
+    with decode_timers() as spent:
+        host_breakdown("sz_decompress_batch 128 x 1 MiB",
+                       lambda: szip.sz_decompress_batch(
+                           comps, param, sizes, device=device), spent)
+    sz_batch_split("128 x 1 MiB", comps, param, sizes, device)
+
+    reset_counts()
+    t0 = time.perf_counter()
+    back = szip.sz_buffto_buff_decompress(big_comp, param, len(big),
+                                          device=device)
+    secs = time.perf_counter() - t0
+    if back != big:
+        raise AssertionError("64 MiB SZ stream does not decompress to input")
+    check_launched("sz decompress 64 MiB", launch_counts(),
+                   decode_route(param_cfg(param), False))
+    print(f"slice sz_buffto_buff_decompress [64 MiB] bytes={len(big)} "
+          f"seconds={secs:.4f} MiB/s={len(big) / secs / 2**20:.2f} "
+          f"identical_to_input=True")
+
+    for label, param, bpp in (
+            ("pps 1000, padded scanlines", szip.SZCom(mask, 16, 32, 1000),
+             16),
+            ("32-bit pixels, interleaved", szip.SZCom(mask, 32, 32, 1024),
+             32)):
+        chunks = sz_chunks(rng, 32, bpp, True)
+        comps = [szip.sz_buffto_buff_compress(c, param, device=device)
+                 for c in chunks]
+        if any(c != c_sz_compress(d, param) for c, d in zip(comps, chunks)):
+            raise AssertionError(f"{label}: streams differ from the C "
+                                 f"surface")
+        sizes = [len(c) for c in chunks]
+        singles = [szip.sz_buffto_buff_decompress(c, param, n, device=device)
+                   for c, n in zip(comps, sizes)]
+        reset_counts()
+        t0 = time.perf_counter()
+        batch = szip.sz_decompress_batch(comps, param, sizes, device=device)
+        secs = time.perf_counter() - t0
+        if not batch == singles == chunks:
+            raise AssertionError(f"{label}: sz_decompress_batch differs")
+        print(f"slice sz_decompress_batch [{label}, 32 x 1 MiB] "
+              f"bytes={sum(sizes)} seconds={secs:.4f} "
+              f"MiB/s={sum(sizes) / secs / 2**20:.2f} "
+              f"identical_to_single_and_input=True")
+        check_launched(f"sz batch, {label}", launch_counts(),
+                       decode_route(param_cfg(param), False))
+        with decode_timers() as spent:
+            host_breakdown(f"sz_decompress_batch {label}",
+                           lambda: szip.sz_decompress_batch(
+                               comps, param, sizes, device=device), spent)
+        sz_batch_split(label, comps, param, sizes, device)
+
+
+def sz_batch_split(label, comps, param, sizes, device):
+    """Where an sz_decompress_batch call's time goes: decode_buffers on
+    the padded sizes, then the SZ layer's per-stream post-processing
+    (scanline unpadding, byte-plane de-interleave, copies)."""
+    import libaec_tpu_torch as lt
+    from libaec_tpu_torch import szip
+
+    plans = [szip._decompress_plan(param, n) for n in sizes]
+    t0 = time.perf_counter()
+    raw = lt.decode_buffers(comps, plans[0][0], [p[1] for p in plans],
+                            device=device)
+    t1 = time.perf_counter()
+    for (_, buf), (_, _, post) in zip(raw, plans):
+        post(buf)
+    t2 = time.perf_counter()
+    print(f"split [sz_decompress_batch {label}] "
+          f"decode_buffers_ms={(t1 - t0) * 1e3:.3f} "
+          f"sz_post_ms={(t2 - t1) * 1e3:.3f}")
+
+
+def param_cfg(param):
+    """The codec Config an SZ parameter set decodes with."""
+    from libaec_tpu_torch import szip
+
+    return szip._decompress_plan(param, 0)[0]
+
+
+def run_stream(cfg, device, seed, mib=32):
+    """The streaming surface at the bench config: `mib` MiB fed to
+    aec_encode in seeded uneven pieces of 1 KiB to 4 MiB, the output
+    drained through avail_out caps of 64 KiB after each piece; the result
+    must be native.encode's of the whole buffer, and kernels 1 and 2 must
+    have launched.  Then the stream drip-fed back through aec_decode in
+    64 KiB pieces (the host decode)."""
+    import gen
+
+    from libaec_tpu_torch import AEC_FLUSH, AEC_NO_FLUSH, native, stream
+    from libaec_tpu_torch.cli import launch_counts
+
+    rng = np.random.default_rng(seed)
+    data = pack_samples(gen.gen_values(
+        rng, (mib << 20) // cfg.bytes_per_sample + 777, cfg.bits_per_sample,
+        False, "lowentropy"), cfg.bits_per_sample, cfg.flags)
+    cap = 64 << 10
+    pieces = []
+    pos = 0
+    while pos < len(data):
+        n = int(rng.integers(1 << 10, 4 << 20))
+        pieces.append(data[pos:pos + n])
+        pos += n
+
+    def encode():
+        s = stream.AecStream(cfg.bits_per_sample, cfg.block_size, cfg.rsi,
+                             cfg.flags, device=device)
+        stream.aec_encode_init(s)
+        out = bytearray()
+        for i, piece in enumerate(pieces + [b""]):
+            s.next_in, s.avail_in = piece, None
+            flush = AEC_FLUSH if i == len(pieces) else AEC_NO_FLUSH
+            while True:
+                s.next_out, s.avail_out = out, cap
+                stream.aec_encode(s, flush)
+                s.next_in = b""
+                if s.avail_out:  # the cap was not filled: drained
+                    break
+        if stream.aec_encode_end(s) != 0:
+            raise AssertionError("aec_encode_end: stream not drained")
+        return bytes(out)
+
+    encode()  # warm-up
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    comp = encode()
+    secs = time.perf_counter() - t0
+    counts = launch_counts()
+    if comp != native.encode(data, cfg)[1]:
+        raise AssertionError("stream encode differs from native.encode")
+    print(f"slice aec_encode [{cfg.bits_per_sample}-bit stream, "
+          f"{len(pieces)} pieces 1 KiB-4 MiB, drained by 64 KiB] "
+          f"bytes={len(data)} seconds={secs:.4f} "
+          f"MiB/s={len(data) / secs / 2**20:.2f} "
+          f"identical_to_native=True")
+    check_launched("stream encode", counts, ENCODE_ROUTE)
+    with encode_timers() as spent:
+        host_breakdown("stream encode", encode, spent)
+    profile_call("stream encode", encode)
+
+    s = stream.AecStream(cfg.bits_per_sample, cfg.block_size, cfg.rsi,
+                         cfg.flags, device=device)
+    stream.aec_decode_init(s)
+    out = bytearray()
+    t0 = time.perf_counter()
+    for i in range(0, len(comp) + cap, cap):
+        s.next_in, s.avail_in = comp[i:i + cap], None
+        s.next_out, s.avail_out = out, 1 << 40
+        stream.aec_decode(s, AEC_FLUSH if i >= len(comp) else AEC_NO_FLUSH)
+    secs = time.perf_counter() - t0
+    body = data[: len(data) // cfg.bytes_per_sample * cfg.bytes_per_sample]
+    if bytes(out[:len(body)]) != body or \
+            (0, bytes(out)) != native.decode(
+                comp, len(out) + cfg.rsi_len_bytes, cfg):
+        raise AssertionError("stream decode differs from the input")
+    print(f"slice aec_decode [{cfg.bits_per_sample}-bit stream, 64 KiB "
+          f"pieces, host] bytes={len(out)} seconds={secs:.4f} "
+          f"MiB/s={len(out) / secs / 2**20:.2f} identical_to_native=True")
+
+
+def run_cli(device, seed):
+    """The `aec` tool of the port, `python -m libaec_tpu_torch.cli`, on a
+    64 MiB file at the bench config and a 48 MiB file of 24-bit samples
+    in 3 bytes: encode (kernels 1 and 2) and decode (kernels 3 and 4; 3, 5
+    and the layout for 3 bytes), each file held against native.encode /
+    native.decode.  The four runs are subprocesses started together (the
+    decodes read native.encode's stream, which the encodes must match),
+    each printing its launch counts on stderr (LIBAEC_TPU_PRINT_LAUNCHES);
+    their wall time is mostly interpreter, torch and CUDA start.  Each
+    call is timed again in this process, cli.main on the same files."""
+    import os
+
+    import gen
+
+    from libaec_tpu_torch import Config, cli, native
+
+    rng = np.random.default_rng(seed)
+    env = dict(os.environ, LIBAEC_TPU_PRINT_LAUNCHES="1")
+    for knob in ("LIBAEC_TPU_ENCODE", "LIBAEC_TPU_DECODE",
+                 "LIBAEC_TPU_FUSED_DECODE"):
+        env.pop(knob, None)
+    files = (("16-bit bench", ["-n", "16", "-j", "64", "-r", "256", "-m"],
+              Config(16, 64, 256, 0x0C), 64),
+             ("24-bit 3-byte", ["-n", "24", "-j", "64", "-r", "256", "-m",
+                                "-3"], Config(24, 64, 256, 0x0E), 48))
+    with tempfile.TemporaryDirectory() as tmp:
+        runs = []  # (label, op, arguments, output, route, expected bytes)
+        for label, flags, cfg, mib in files:
+            n = (mib << 20) // cfg.bytes_per_sample + 99
+            data = pack_samples(gen.gen_values(
+                rng, n, cfg.bits_per_sample, False, "lowentropy"),
+                cfg.bits_per_sample, cfg.flags)
+            src, rz, enc, dec = (str(Path(tmp) / f"{cfg.bits_per_sample}"
+                                     f".{ext}") for ext in
+                                 ("dat", "native.rz", "rz", "out"))
+            Path(src).write_bytes(data)
+            comp = native.encode(data, cfg)[1]
+            Path(rz).write_bytes(comp)
+            status, back = native.decode(
+                comp, len(data) + cfg.rsi_len_bytes, cfg)
+            if status != 0:
+                raise AssertionError(f"native.decode failed ({label})")
+            runs += [(label, "encode", flags + [src, enc], enc, ENCODE_ROUTE,
+                      comp, len(data)),
+                     (label, "decode", ["-d"] + flags + [rz, dec], dec,
+                      decode_route(cfg, False), back, len(data))]
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen(
+            [sys.executable, "-m", "libaec_tpu_torch.cli", *run[2]],
+            cwd=ROOT, env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True) for run in runs]
+        results = []
+        for proc in procs:
+            _, err = proc.communicate(timeout=300)
+            results.append((proc.returncode, err,
+                            time.perf_counter() - t0))
+        for (label, op, args, out, route, expect, nbytes), (rc, err, secs) \
+                in zip(runs, results):
+            if rc != 0:
+                raise AssertionError(f"cli {op} [{label}] exit {rc}: {err}")
+            line = [ln for ln in err.splitlines()
+                    if ln.startswith("launches ")][-1]
+            if Path(out).read_bytes() != expect:
+                raise AssertionError(f"cli {op} [{label}]: file differs "
+                                     f"from native")
+            check_launched(f"cli {op} [{label}]",
+                           json.loads(line[len("launches "):]), route)
+            t1 = time.perf_counter()
+            if cli.main(args) != 0:
+                raise AssertionError(f"cli.main {op} [{label}] failed")
+            in_secs = time.perf_counter() - t1
+            if Path(out).read_bytes() != expect:
+                raise AssertionError(f"cli.main {op} [{label}]: file "
+                                     f"differs from native")
+            print(f"slice cli {op} [{label}] bytes={nbytes} "
+                  f"process_seconds={secs:.4f} (4 processes at once) "
+                  f"in_process_seconds={in_secs:.4f} "
+                  f"in_process_MiB/s={nbytes / in_secs / 2**20:.2f} "
+                  f"identical_to_native=True")
+            timers = encode_timers if op == "encode" else decode_timers
+            with timers() as spent:
+                host_breakdown(f"cli.main {op} {label}",
+                               lambda: cli.main(args), spent)
+    # what a CLI process pays before its first byte: the interpreter, the
+    # imports, the CUDA context and the kernels' library, one process alone
+    t0 = time.perf_counter()
+    subprocess.run(
+        [sys.executable, "-c", "import torch, libaec_tpu_torch.cli; "
+         "from libaec_tpu_torch.kernels import _build; _build.load(); "
+         "torch.zeros(1, device='cuda'); torch.cuda.synchronize()"],
+        cwd=ROOT, check=True, timeout=300)
+    print(f"split [cli process start, alone] "
+          f"seconds={time.perf_counter() - t0:.4f}")
+
+
 def _step_timer(spent, lock):
     def wrap(step, fn):
         def timed_step(*args, **kwargs):
@@ -1192,6 +1586,13 @@ def main():
     # 12. many streams: 256 of 1 MiB each at the bench config, on both
     #     routes
     many_launches = run_many(bench_cfg, device, seed=20261018)
+
+    # 13-15. the surfaces users call: the SZ layer on an HDF5-shaped
+    #        dataset, the streaming calls, the `aec` tool on files
+    print(f"surfaces on {smi}")
+    run_sz(device, seed=20261019)
+    run_stream(bench_cfg, device, seed=20261020)
+    run_cli(device, seed=20261021)
     foreign = sorted(m for m in sys.modules if m.split(".")[0] in (
         "jax", "jaxlib", "libaec_tpu"))
     if foreign:

@@ -13,6 +13,16 @@ predictor alone and then the layout), or, opted into with fused=True or
 LIBAEC_TPU_FUSED_DECODE, through kernels/decode_fused_cuda.py (all of it
 in one kernel).  Every kernel has a plain PyTorch version beside it.
 
+The entry points are encode_buffer[_status], decode_buffer[_status],
+decode_buffer_device and decode_buffers; above them sit the surfaces
+users call, each the twin of the JAX package's module of the same name:
+szip.py (the SZ layer HDF5 and netCDF reach: sz_buffto_buff_compress,
+sz_buffto_buff_decompress, sz_decompress_batch), stream.py (the aec_*
+streaming calls on an AecStream) and cli.py (the `aec` tool, installed
+as `aec-torch`).  Each takes device="cuda" by default; a host without a
+card asks for the CPU with device="cpu" (the kernels' plain versions) or
+the CLI's LIBAEC_TPU_ENCODE / LIBAEC_TPU_DECODE knobs.
+
 The codec has no weights: both packages take a Config of the same fields,
 the same (k, bit0) carries and the same scan records, so nothing needs
 converting between them.
@@ -42,6 +52,7 @@ from .constants import (  # noqa: F401
 
 from .decode import (  # noqa: F401
     decode_buffer,
+    decode_buffer_device,
     decode_buffer_status,
     decode_buffers,
 )

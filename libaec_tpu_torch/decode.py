@@ -201,7 +201,8 @@ def finish(data, cfg, tail_bit, done_bytes, out_size, out):
     return status, tail, out[:done_bytes + len(tail)].tobytes()
 
 
-def _kernels_supported(cfg):
+def kernels_supported(cfg):
+    """Whether cfg passes the gates of the decode kernels (3 and 4)."""
     return (decode_cuda.kernel_supported(cfg)
             and unpredict_cuda.kernel_supported(cfg))
 
@@ -211,7 +212,7 @@ def _check_device_route(cfg, device):
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("CUDA device requested but none is available")
     _native.get_lib()  # raises when the native library cannot be built
-    if not _kernels_supported(cfg):
+    if not kernels_supported(cfg):
         raise ValueError(f"config outside the kernel gates: {cfg}")
 
 
@@ -406,7 +407,7 @@ def decode_buffers(datas, cfg: Config, out_sizes, device="cuda",
     n = len(datas)
     if n == 0:
         return []
-    if not _kernels_supported(cfg):
+    if not kernels_supported(cfg):
         return [_native.decode(d, size, cfg)
                 for d, size in zip(datas, out_sizes)]
     device = torch.device(device)
@@ -494,7 +495,7 @@ def _use_device(cfg, out_size, force_device):
     """Routing twin of _device_decode_wanted (libaec_tpu/decode.py:37-59):
     the device when the kernel gates pass and the output is large (or
     force_device is set)."""
-    return _kernels_supported(cfg) and (
+    return kernels_supported(cfg) and (
         force_device or out_size >= DEVICE_DECODE_MIN_BYTES)
 
 

@@ -81,7 +81,7 @@ def words_to_stream_bytes(words, total_bits):
 
 def encode_tail(cfg, raw_tail, k_init, bit0):
     """The stream's short last RSI, on the host: (stream bytes as a numpy
-    uint8 array, total_bits incl. bit0).
+    uint8 array, total_bits incl. bit0, k_final).
 
     raw_tail: numpy uint8 bytes of the rem < samples_per_rsi samples after
     the last whole RSI; the last block is filled with repeats of the last
@@ -96,13 +96,40 @@ def encode_tail(cfg, raw_tail, k_init, bit0):
     nb = -(-rem // bs)
     last = raw_tail[(rem - 1) * bsz:rem * bsz]
     raw = np.concatenate([raw_tail[:rem * bsz], np.tile(last, nb * bs - rem)])
-    win, block_bits, _ = encode_cuda.encode_fields_plain(
+    win, block_bits, k_final = encode_cuda.encode_fields_plain(
         cfg, torch.from_numpy(raw), torch.tensor([k_init]), nb=nb)
     nwords = merge_cuda.word_count(cfg, nb, encode_cuda.window_words(cfg) - 1)
     words, tail = bitpack.merge_windows(
         win, block_bits, torch.tensor([bit0]), nwords)
     total_bits = int(tail[0])
-    return words_to_stream_bytes(words, total_bits), total_bits
+    return words_to_stream_bytes(words, total_bits), total_bits, int(k_final)
+
+
+def encode_blocks(cfg, raw_u8, nb, k, bit0, device):
+    """One chunk with its carries held on the host, for callers that code
+    a stream piece by piece (stream.AecStream): (stream bytes as a numpy
+    uint8 array, total_bits incl. bit0, k_final); twin of
+    encode_blocks_jax (libaec_tpu/encode.py:263).
+
+    raw_u8: numpy uint8 stream bytes.  With nb == cfg.rsi and whole RSIs
+    of bytes, they are coded by the kernels on `device` (their plain
+    versions for "cpu"), any number of RSIs in one launch of each; k and
+    bit0 go in as one-element tensors and k comes back with one
+    `.item()`.  Otherwise they are the stream's last, short RSI (fewer
+    samples than an RSI, nb = their blocks, the last block filled with
+    repeats of the last sample), coded on the host by encode_tail."""
+    if nb < cfg.rsi or len(raw_u8) % cfg.rsi_len_bytes:
+        return encode_tail(cfg, raw_u8, k, bit0)
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("CUDA device requested but none is available")
+    raw = torch.from_numpy(np.array(raw_u8, dtype=np.uint8)).to(device)
+    words, total_bits, k_final, _ = encode_chunk(
+        cfg, raw, torch.tensor([k], dtype=torch.int32, device=device),
+        torch.tensor([bit0], dtype=torch.int64, device=device))
+    total_bits = int(total_bits)
+    return (words_to_stream_bytes(words, total_bits), total_bits,
+            int(k_final))
 
 
 class _Stager:
@@ -255,7 +282,7 @@ def encode_buffer(data, cfg: Config, device="cuda", force_device=False,
         k_final = int(k_dev)
     if rem:
         out.append(*encode_tail(cfg, raw[n_full * S * bsz:], k_final,
-                                out.bits % 8))
+                                out.bits % 8)[:2])
     return _check_capacity(out.finish(), out_size)
 
 

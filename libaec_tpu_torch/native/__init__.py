@@ -19,6 +19,7 @@ import os
 import subprocess
 import tempfile
 import threading
+import weakref
 from pathlib import Path
 
 import numpy as np
@@ -57,7 +58,19 @@ SIGNATURES = {
     # ref_sample, win, wf, n_rsis_out, tail_bit_out, cfg, threads
     "aectpu_scan_blocks": [_P, _Z, _U64, _Z, _I, _P, _P, _P, _P, _P, _I,
                            _PZ, _PU64, *_CFG, _I],
+    # the streaming encode session (encoder.cpp): new(cfg) -> handle;
+    # feed(handle, in, n_rsis); finish(handle, tail, tail_samples);
+    # pending(handle); read(handle, out, cap); free(handle)
+    "aectpu_enc_new": _CFG,
+    "aectpu_enc_feed": [_P, _P, _Z],
+    "aectpu_enc_finish": [_P, _P, _Z],
+    "aectpu_enc_pending": [_P],
+    "aectpu_enc_read": [_P, _P, _Z],
+    "aectpu_enc_free": [_P],
 }
+# return types other than int
+RESTYPES = {"aectpu_enc_new": _P, "aectpu_enc_pending": _Z,
+            "aectpu_enc_read": _Z, "aectpu_enc_free": None}
 
 
 def library_path():
@@ -100,7 +113,7 @@ def get_lib():
             for name, argtypes in SIGNATURES.items():
                 fn = getattr(lib, name)
                 fn.argtypes = argtypes
-                fn.restype = ctypes.c_int
+                fn.restype = RESTYPES.get(name, ctypes.c_int)
             _lib = lib
     return _lib
 
@@ -295,3 +308,49 @@ def decode_deltas(data, max_samples, cfg):
         in_ptr, n, _ptr(out), 4 * max_samples, ctypes.byref(written),
         *_cfg(cfg))
     return status, out[: written.value // 4]
+
+
+class EncSession:
+    """The native streaming encode session (aectpu_enc_*, encoder.cpp):
+    whole RSIs in, then the short last RSI and the final flush; the coded
+    bytes are read out as they are produced.  It holds back the bits of
+    the last unfinished 32-bit word until finish(), so read() may lag the
+    stream by up to four bytes before then.  Freed when the object is
+    collected."""
+
+    def __init__(self, cfg):
+        self.cfg = cfg
+        lib = get_lib()
+        handle = lib.aectpu_enc_new(*_cfg(cfg))
+        if not handle:
+            raise ValueError(f"the native encoder refuses the config: {cfg}")
+        self._handle = handle
+        weakref.finalize(self, lib.aectpu_enc_free, handle)
+
+    def feed(self, data):
+        """Code the whole RSIs of stream bytes `data`."""
+        n_rsis = len(data) // self.cfg.rsi_len_bytes
+        if n_rsis:
+            _keep, in_ptr, _ = _in(data)
+            get_lib().aectpu_enc_feed(self._handle, in_ptr, n_rsis)
+
+    def finish(self, tail):
+        """Code the stream's last, short RSI (the whole samples of `tail`;
+        may be empty) and flush to a byte boundary; an empty stream gives
+        one zero byte."""
+        n = len(tail) // self.cfg.bytes_per_sample
+        _keep, in_ptr, _ = _in(tail)
+        get_lib().aectpu_enc_finish(self._handle, in_ptr, n)
+
+    def pending(self):
+        """Coded bytes not yet read."""
+        return get_lib().aectpu_enc_pending(self._handle)
+
+    def read(self, cap):
+        """Up to cap coded bytes, removed from the session."""
+        n = min(cap, self.pending())
+        if n <= 0:
+            return b""
+        out = np.empty(n, np.uint8)
+        n = get_lib().aectpu_enc_read(self._handle, _ptr(out), n)
+        return out[:n].tobytes()

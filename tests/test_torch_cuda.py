@@ -691,3 +691,83 @@ def test_decode_buffers_matches_native(dev, cfg, fused):
     one_kernel = fused and cfg.bytes_per_sample != 3
     assert 0 < moved[one_kernel] < len(comps)
     assert moved[not one_kernel] == 0
+
+
+# -- the surfaces (szip, stream, cli) on the card ----------------------------
+
+@pytest.mark.parametrize("cfg", [BENCH, Config(24, 64, 16, U24.flags),
+                                 Config(13, 32, 8, AEC_DATA_SIGNED
+                                        | AEC_DATA_PREPROCESS)],
+                         ids=["bench16", "u24", "s13bs32"])
+def test_stream_encode_on_the_card(dev, cfg):
+    """aec_encode in uneven pieces on the card: native.encode's stream,
+    one launch of kernels 1 and 2 for each call that completes an RSI;
+    dirty bits above bits_per_sample are masked."""
+    from libaec_tpu_torch import AEC_FLUSH, AEC_NO_FLUSH, stream
+
+    rng = np.random.default_rng(cfg.bits_per_sample)
+    vals = gen_values(rng, 9 * cfg.samples_per_rsi + 77,
+                      cfg.bits_per_sample, cfg.signed, "midentropy")
+    clean = pack_samples(vals, cfg.bits_per_sample, cfg.flags)
+    hi = (1 << 8 * cfg.bytes_per_sample) - (1 << cfg.bits_per_sample)
+    dirty = pack_samples(vals | (rng.integers(0, 1 << 32, vals.size,
+                                              dtype=np.uint64)
+                                 & hi).astype(np.uint32),
+                         cfg.bits_per_sample, cfg.flags)
+    s = stream.AecStream(cfg.bits_per_sample, cfg.block_size, cfg.rsi,
+                         cfg.flags, device=dev)
+    stream.aec_encode_init(s)
+    before = encode_cuda.launches
+    pos, calls = 0, 0
+    while pos < len(dirty):
+        end = min(pos + int(rng.integers(1, 3 * cfg.rsi_len_bytes)),
+                  len(dirty))
+        s.next_in, s.avail_in = dirty[pos:end], None
+        stream.aec_encode(s, AEC_NO_FLUSH)
+        calls += end // cfg.rsi_len_bytes > pos // cfg.rsi_len_bytes
+        pos = end
+    stream.aec_encode(s, AEC_FLUSH)
+    assert stream.aec_encode_end(s) == 0
+    assert bytes(s.next_out) == native.encode(clean, cfg)[1]
+    assert encode_cuda.launches - before == calls
+
+
+@pytest.mark.parametrize("args", [(48, 16, 32, 1024), (48, 16, 32, 1000),
+                                  (48, 32, 32, 1024), (16, 8, 16, 256)],
+                         ids=["pps1024", "pps1000", "bpp32", "8bit-noNN"])
+def test_szip_on_the_card(dev, args):
+    """SZ compress forced onto the card and a batch of chunks decoded
+    there: the C szlib surface's stream, the input back."""
+    from chip_smoke import c_sz_compress, sz_chunks
+
+    from libaec_tpu_torch import szip
+
+    param = szip.SZCom(*args)
+    chunks = sz_chunks(np.random.default_rng(args[3]), 6, args[1],
+                       bool(args[0] & 16))
+    chunks[-1] = chunks[-1][:3008]  # a chunk of one or two RSIs
+    comps = [szip.sz_buffto_buff_compress(c, param, device=dev,
+                                          force_device=True) for c in chunks]
+    assert comps == [c_sz_compress(c, param) for c in chunks]
+    assert szip.sz_decompress_batch(comps, param, [len(c) for c in chunks],
+                                    device=dev) == chunks
+
+
+@pytest.mark.parametrize("cfg", [BENCH, Config(24, 64, 16, U24.flags)],
+                         ids=["bench16", "u24"])
+def test_cli_card_routes(dev, tmp_path, cfg):
+    from libaec_tpu_torch import cli
+
+    rng = np.random.default_rng(5)
+    data = pack_samples(gen_values(rng, 7 * cfg.samples_per_rsi + 5,
+                                   cfg.bits_per_sample, False, "lowentropy"),
+                        cfg.bits_per_sample, cfg.flags)
+    rz, out = str(tmp_path / "f.rz"), str(tmp_path / "f.out")
+    assert cli._encode_to_file(data, cfg, rz, device=dev,
+                               force_device=True) == 0
+    comp = native.encode(data, cfg)[1]
+    assert open(rz, "rb").read() == comp
+    assert cli._decode_to_file(comp, cfg, out, device=dev,
+                               force_device=True) == 0
+    assert open(out, "rb").read() == native.decode(
+        comp, len(data) + cfg.rsi_len_bytes, cfg)[1]

@@ -146,7 +146,7 @@ def test_many_outside_the_gates(bs, flags, monkeypatch):
     present: what the loop of native.decode and decode_buffers_tpu
     return."""
     cfg = Config(16, bs, 16, flags)
-    assert not torch_decode._kernels_supported(cfg)
+    assert not torch_decode.kernels_supported(cfg)
     comps, sizes = make_streams(cfg, seed=bs)
     want = [native.decode(c, s, cfg) for c, s in zip(comps, sizes)]
     assert [w[0] for w in want[:4]] == [0, 0, 0, 0]

@@ -31,12 +31,13 @@ def run_python(code, *args):
         capture_output=True, text=True, timeout=600)
 
 
-def test_port_imports_no_jax_and_no_jax_package():
+def test_port_imports_no_jax_and_no_jax_package(tmp_path):
     res = run_python("""
         import sys
         import numpy as np
         import libaec_tpu_torch as lt
         from libaec_tpu_torch import native
+        from libaec_tpu_torch import cli, stream, szip
         from libaec_tpu_torch.kernels import (  # every module of the port
             decode_cuda, decode_fused_cuda, encode_cuda, merge_cuda,
             unpredict_cuda)
@@ -52,12 +53,36 @@ def test_port_imports_no_jax_and_no_jax_package():
                                     force_device=True, fused=fused) == raw
         assert lt.decode_buffers([comp, comp[:40]], cfg, [len(raw)] * 2,
                                  device="cpu")[0] == (0, raw)
+
+        # the surfaces: an SZ round trip, a stream round trip, the CLI
+        param = szip.SZCom(48, 16, 16, 250)
+        sz = szip.sz_buffto_buff_compress(raw, param, device="cpu",
+                                          force_device=True)
+        assert szip.sz_decompress_batch([sz], param, [len(raw)],
+                                        device="cpu") == [raw]
+        s = stream.AecStream(16, 64, 8, cfg.flags, device="cpu")
+        stream.aec_encode_init(s)
+        for i in range(0, len(raw), 3000):
+            s.next_in, s.avail_in = raw[i:i + 3000], None
+            stream.aec_encode(s, lt.AEC_NO_FLUSH)
+        stream.aec_encode(s, lt.AEC_FLUSH)
+        assert bytes(s.next_out) == comp
+        stream.aec_decode_init(s)
+        s.next_in, s.avail_in = comp, None
+        s.next_out, s.avail_out = None, len(raw)
+        stream.aec_decode(s, lt.AEC_FLUSH)
+        assert bytes(s.next_out) == raw
+        src, rz = sys.argv[1] + "/src.dat", sys.argv[1] + "/src.rz"
+        open(src, "wb").write(raw)
+        flags = ["-n", "16", "-j", "64", "-r", "8", "-m"]
+        assert cli.main(flags + [src, rz]) == 0
+        assert open(rz, "rb").read() == comp
         bad = sorted(m for m in sys.modules
                      if m in ("jax", "jaxlib", "libaec_tpu")
                      or m.startswith(("jax.", "jaxlib.", "libaec_tpu.")))
         assert not bad, bad
         print("standalone ok")
-    """)
+    """, str(tmp_path))
     assert res.returncode == 0, res.stderr
     assert res.stdout.strip() == "standalone ok"
 
