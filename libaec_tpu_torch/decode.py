@@ -30,6 +30,7 @@ import torch
 from . import native as _native
 from .config import Config
 from .constants import AEC_MEM_ERROR, AEC_OK, AecDataError, AecMemError
+from .hostbytes import HostBytes
 from .kernels import decode_cuda, decode_fused_cuda, unpredict_cuda
 from .ops import bitunpack
 from .ops.bitunpack import WF_BUCKETS  # noqa: F401
@@ -181,24 +182,33 @@ def fetch_chunk(chunk_out, staging):
 
 
 def store_part(flat, dst):
-    """Fetched bytes into the host tensor dst, or returned as bytes when
-    dst is None."""
+    """Fetched bytes into dst, a view of the result's bytes (HostBytes),
+    or returned as bytes when dst is None (the part_sink route).  Tensors
+    copy with torch, split over its threads (one stream's chunks: the
+    host's other threads are the walk and one fill worker); numpy arrays
+    on this thread alone (decode_buffers, whose pools keep every core
+    busy: there torch's threads slowed a batch of 1 MiB streams, PERF.md
+    section 6)."""
     if dst is None:
         return flat.numpy().tobytes()
-    dst.copy_(flat)
+    dst[:] = flat
     return None
 
 
 def finish(data, cfg, tail_bit, done_bytes, out_size, out):
     """The serial native tail from tail_bit, and the whole output:
-    (status, tail bytes, output bytes or None when out is None)."""
+    (status, tail bytes, output bytes).  `out` is the HostBytes that the
+    first done_bytes were stored into: the tail goes in after them and
+    the output is `out` itself, cut in place where the stream ended
+    short.  With out None (no part stored, or parts sent to a sink) the
+    output is the tail."""
     status, tail = _native.decode_tail(data, tail_bit,
                                        out_size - done_bytes, cfg)
     if out is None:
-        return status, tail, None
-    out = out.numpy()
-    out[done_bytes:done_bytes + len(tail)] = np.frombuffer(tail, np.uint8)
-    return status, tail, out[:done_bytes + len(tail)].tobytes()
+        return status, tail, tail
+    end = done_bytes + len(tail)
+    out.view.numpy()[done_bytes:end] = np.frombuffer(tail, np.uint8)
+    return status, tail, out.take(end)
 
 
 def _check_device_route(device):
@@ -293,11 +303,11 @@ def decode_buffer_device(data, cfg: Config, out_size, device,
     want_rsis = out_size // rsi_bytes
     if chunk_rsis is None:
         chunk_rsis = max(1, (8 << 20) // cfg.samples_per_rsi)
-    out = torch.empty(out_size, dtype=torch.uint8) \
-        if part_sink is None else None
+    # the result itself, filled in place (no part is stored below one RSI)
+    out = HostBytes(out_size) if part_sink is None and want_rsis else None
 
     def deliver(flat, off):
-        dst = None if out is None else out[off:off + flat.numel()]
+        dst = None if out is None else out.view[off:off + flat.numel()]
         part = store_part(flat, dst)
         if part is not None:
             part_sink(part)
@@ -405,25 +415,26 @@ def decode_buffers(datas, cfg: Config, out_sizes, device="cuda",
     if scan_threads is None:
         scan_threads = min(max(1, (os.cpu_count() or 2) - 1), 8, n)
     results = [None] * n
-    pieces = [[] for _ in range(n)]  # each stream's output, part by part
-    tails = [None] * n               # (tail_bit, RSIs scanned)
+    outs = [None] * n     # each stream's result (HostBytes), filled in place
+    stored = [0] * n      # bytes of it stored so far
+    tails = [None] * n    # (tail_bit, RSIs scanned)
 
     def finish_stream(i):
         tail_bit, n_rsis = tails[i]
-        status, tail, _ = finish(datas[i], cfg, tail_bit, n_rsis * rsi_bytes,
-                                 out_sizes[i], None)
-        if tail or not pieces[i]:
-            pieces[i].append(tail)
-        # one piece is the result as it is: no second copy
-        results[i] = (status, pieces[i][0] if len(pieces[i]) == 1
-                      else b"".join(pieces[i]))
-        pieces[i] = None
+        status, _, result = finish(datas[i], cfg, tail_bit,
+                                   n_rsis * rsi_bytes, out_sizes[i], outs[i])
+        results[i] = (status, result)
+        outs[i] = None
 
     def deliver(flat, parts):
         row = 0
         for i, cnt, last in parts:
             nbytes = cnt * rsi_bytes
-            pieces[i].append(store_part(flat[row:row + nbytes], None))
+            if outs[i] is None:
+                outs[i] = HostBytes(out_sizes[i])
+            store_part(flat[row:row + nbytes].numpy(),
+                       outs[i].view[stored[i]:stored[i] + nbytes].numpy())
+            stored[i] += nbytes
             row += nbytes
             if last:
                 finish_stream(i)

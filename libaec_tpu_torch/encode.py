@@ -19,7 +19,8 @@ from . import native as _native
 from .config import Config
 from .constants import AEC_OK, AEC_STREAM_ERROR, AecStreamError
 from .kernels import encode_cuda, merge_cuda
-from .kernels.encode_cuda import worst_case_bits_per_block  # noqa: F401
+from .hostbytes import HostBytes
+from .kernels.encode_cuda import worst_case_bits_per_block
 from .ops import bitpack
 from .ops.u32 import words_to_u8
 
@@ -30,21 +31,25 @@ AUTO_JAX_MIN_BYTES = 4 << 20
 
 
 class _OutputAssembler:
-    """Accumulates chunk outputs, OR-merging the shared boundary byte
-    (libaec_tpu/encode.py:352)."""
+    """Places chunk outputs straight into the bytes object encode_buffer
+    returns, OR-merging the shared boundary byte (libaec_tpu/encode.py:352).
+    The stream's length is known only after its last chunk and its tail,
+    so the object is allocated at `capacity`, an upper bound
+    (stream_capacity), and finish cuts it to the stream in place."""
 
-    def __init__(self):
-        self.buf = bytearray()
+    def __init__(self, capacity):
+        self.out = HostBytes(capacity) if capacity else None
         self.bits = 0
 
     def append(self, chunk_bytes, total_bits):
-        chunk = np.asarray(chunk_bytes)
-        bit0 = self.bits % 8
-        if bit0 and len(self.buf):
-            self.buf[-1] |= int(chunk[0])
-            self.buf += chunk[1:].tobytes()
-        else:
-            self.buf += chunk.tobytes()
+        chunk = torch.from_numpy(np.asarray(chunk_bytes))
+        start, bit0 = divmod(self.bits, 8)
+        view = self.out.view
+        if bit0:
+            view[start] |= chunk[0]
+            start, chunk = start + 1, chunk[1:]
+        # out of range raises (a size mismatch), never writes past the end
+        view[start:start + chunk.numel()].copy_(chunk)
         self.bits += total_bits - bit0
 
     def finish(self):
@@ -52,7 +57,18 @@ class _OutputAssembler:
             # empty input: the reference still flushes one zero byte
             # (encode.c:686-695, observed behaviour)
             return b"\x00"
-        return bytes(self.buf)
+        return self.out.take((self.bits + 7) // 8)
+
+
+def stream_capacity(cfg, n_samples):
+    """Bytes that bound the stream of n_samples samples: every block at
+    its worst case and, under AEC_PAD_RSI, every RSI padded by 7 bits,
+    and a byte to spare (0 for no samples)."""
+    nb = -(-n_samples // cfg.block_size)
+    bits = nb * worst_case_bits_per_block(cfg)
+    if cfg.pad_rsi:
+        bits += 7 * -(-nb // cfg.rsi)
+    return -(-bits // 8) + 1 if nb else 0
 
 
 def encode_chunk(cfg, raw_u8, k_dev, bit0_dev):
@@ -73,10 +89,19 @@ def encode_chunk(cfg, raw_u8, k_dev, bit0_dev):
 def words_to_stream_bytes(words, total_bits):
     """The compressed bytes of a chunk: bytes [4, 4 + ceil(total_bits/8))
     of the word buffer (twin of encode.py:248-260); only that slice is
-    copied to the host."""
+    copied to the host.  From the card it goes, on the current stream,
+    into pinned memory from torch's caching host allocator (reused across
+    calls: a copy to pageable memory runs at a fraction of the bus's
+    rate); the result is a view of it, valid while it is referenced."""
     nbytes = (total_bits + 7) // 8
     nwords = (4 + nbytes + 3) // 4
-    return words_to_u8(words[:nwords])[4:4 + nbytes]
+    src = words[:nwords]
+    if src.is_cuda:
+        host = torch.empty(nwords, dtype=src.dtype, pin_memory=True)
+        host.copy_(src, non_blocking=True)
+        torch.cuda.current_stream(src.device).synchronize()
+        src = host
+    return words_to_u8(src)[4:4 + nbytes]
 
 
 def encode_tail(cfg, raw_tail, k_init, bit0):
@@ -237,7 +262,7 @@ def encode_buffer(data, cfg: Config, device="cuda", force_device=False,
         raise RuntimeError("CUDA device requested but none is available")
     bsz = cfg.bytes_per_sample
     n_samples = len(data) // bsz
-    out = _OutputAssembler()
+    out = _OutputAssembler(stream_capacity(cfg, n_samples))
     if n_samples == 0:
         return out.finish()
     # a view, not a copy: copying 256 MiB cost ~0.1 s on the H100 host

@@ -978,3 +978,65 @@ def test_wide_buffers_match_native(dev, cfg, n_rsi):
     assert got == native.decode(want, len(data), cfg)
     if not cfg.signed:
         assert got[1] == data
+
+
+# -- the entry points' results on the host -----------------------------------
+
+def _bench_data(n_rsi, seed):
+    """n_rsi RSIs of the bench config, a partial RSI and a byte short of a
+    sample."""
+    rng = np.random.default_rng(seed)
+    vals = gen_values(rng, n_rsi * BENCH.samples_per_rsi + 999, 16, False,
+                      "lowentropy")
+    return pack_samples(vals, 16, BENCH.flags) + b"\x5a"
+
+
+@pytest.mark.parametrize("entry", ["encode_buffer", "decode_buffer_status",
+                                   "decode_buffers"])
+def test_results_do_not_alias(dev, entry):
+    """Two calls in a row on different data, in many chunks: each result
+    a plain bytes, native's, and the first unchanged after the second (no
+    result shares memory with pinned staging, a pinned part or a slot)."""
+    calls = []
+    for seed in (3, 4):
+        data = _bench_data(40, seed)
+        comp = native.encode(data, BENCH)[1]
+        size = len(data) - 1
+        if entry == "encode_buffer":
+            got = [libaec_tpu_torch.encode_buffer(
+                data, BENCH, device=dev, force_device=True,
+                rsis_per_chunk=7)]
+            want = [comp]
+        elif entry == "decode_buffer_status":
+            got = [libaec_tpu_torch.decode_buffer_status(
+                comp, BENCH, size, device=dev, force_device=True,
+                chunk_rsis=7)]
+            want = [native.decode(comp, size, BENCH)]
+        else:
+            comps = [comp, comp[: len(comp) // 2], comp]
+            sizes = [size, size, size - 1]
+            got = libaec_tpu_torch.decode_buffers(comps, BENCH, sizes,
+                                                  device=dev, chunk_rsis=16)
+            want = [native.decode(c, s, BENCH) for c, s in zip(comps, sizes)]
+        calls.append((got, want))
+    assert calls[0][1] != calls[1][1]
+    for got, want in calls:
+        assert got == want
+        assert all(type(r if entry == "encode_buffer" else r[1]) is bytes
+                   for r in got)
+
+
+def test_64mib_results_are_natives_bytes(dev):
+    """64 MiB through encode_buffer and decode_buffer_status at their
+    default chunks (and so the default routes): plain bytes, byte for
+    byte native's, the input back."""
+    n_rsi = (64 << 20) // BENCH.rsi_len_bytes
+    data = _bench_data(n_rsi, 5)
+    want = native.encode(data, BENCH)[1]
+    got = libaec_tpu_torch.encode_buffer(data, BENCH, device=dev)
+    assert type(got) is bytes and got == want
+    status, out = libaec_tpu_torch.decode_buffer_status(
+        want, BENCH, len(data) - 1, device=dev)
+    assert type(out) is bytes
+    assert (status, out) == native.decode(want, len(data) - 1, BENCH)
+    assert out == data[:-1]
