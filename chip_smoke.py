@@ -52,6 +52,15 @@ encode_buffer, decode_buffer_status and (as 64 streams) decode_buffers,
 each held against the native codec on the same buffer, and one RSI of
 64 Mi samples (256 MiB) through both entry points with the device memory
 each takes.
+Last, a stream's short last RSI (phase 19): kernels 1 and 2 on one of nb
+1, 2 and rsi - 1 blocks at five configs (the bench config, 3-byte
+samples, sar32bit's AEC_PAD_RSI, SZIP's blocks of 4 and blocks of 1024)
+against their plain versions, then encode_buffer, encode_buffer_status,
+the stream and the SZ compress over buffers that end in one, each held
+against the native codec, the C szlib surface and its launch counts.
+Every kernel's plain version is wrapped in a counter (count_plain_versions)
+and every main path's run, phase 16's ranks too, is held to no call of
+one.
 Imports neither JAX nor the JAX package:
 the bit-exact reference is libaec_tpu_torch.native.  Exits non-zero, and
 prints no result line, on any failure or when no CUDA device is present.
@@ -612,7 +621,6 @@ def run_slice(cfg, mib, device, seed):
 
     import libaec_tpu_torch as lt
     from libaec_tpu_torch import native
-    from libaec_tpu_torch.kernels import encode_cuda, merge_cuda
 
     bps, bsz = cfg.bits_per_sample, cfg.bytes_per_sample
     rng = np.random.default_rng(seed)
@@ -625,7 +633,7 @@ def run_slice(cfg, mib, device, seed):
     # warm-up: pinned staging buffers, the allocator's pools
     lt.encode_buffer(buffers[0][1][: 64 << 20], cfg, device=device)
 
-    encode_cuda.launches = merge_cuda.launches = 0
+    reset_counts()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(device)
     results = []
@@ -634,8 +642,7 @@ def run_slice(cfg, mib, device, seed):
         comp = lt.encode_buffer(data, cfg, device=device)
         secs = time.perf_counter() - t0
         results.append((kind, data, comp, secs))
-    launches = {"encode_fields": encode_cuda.launches,
-                "merge_windows": merge_cuda.launches}
+    launches = read_counts()
     peak = torch.cuda.max_memory_allocated(device)
 
     for kind, data, comp, secs in results:
@@ -651,10 +658,9 @@ def run_slice(cfg, mib, device, seed):
               f"ratio={len(data) / len(comp):.4f} "
               f"peak_device_MiB={peak / 2**20:.1f} "
               f"identical_to_native=True round_trip=True")
-    for name, count in launches.items():
-        if count <= 0:
-            raise AssertionError(f"main path never launched {name}")
-    print(f"slice launches [{bps}-bit encode] {json.dumps(launches)}")
+    check_launched(f"{bps}-bit encode", launches, ENCODE_ROUTE)
+    check_encode_launches(f"{bps}-bit encode", cfg, launches,
+                          [len(data) for _, data in buffers])
     for kind, data, _, _ in results:
         with encode_timers() as spent:
             host_breakdown(f"{bps}-bit {kind}", lambda: lt.encode_buffer(
@@ -687,8 +693,10 @@ def decode_route(cfg, fused):
 
 def check_route(label, launches, route, chunks):
     """Every wrapper of the route launched once per chunk, and no other
-    decode wrapper launched at all."""
+    decode wrapper (nor a plain version) at all."""
     print(f"slice launches [{label}] chunks={chunks} {json.dumps(launches)}")
+    if "plain_versions" in launches:
+        PLAIN_CHECKS.append(label)
     for name, count in launches.items():
         want = chunks if name in route else 0
         if count != want:
@@ -706,7 +714,6 @@ def run_decode_slice(results, cfg, device, fused=False):
     import libaec_tpu_torch as lt
     from libaec_tpu_torch import native
 
-    counters = decode_counters()
     bps, bsz = cfg.bits_per_sample, cfg.bytes_per_sample
     tag = f"{bps}-bit fused" if fused else f"{bps}-bit"
 
@@ -717,8 +724,7 @@ def run_decode_slice(results, cfg, device, fused=False):
     # warm-up: pinned slots, the allocator's pools, the worker threads
     decode(results[0][2], 64 << 20)
 
-    for mod, attr in counters.values():
-        setattr(mod, attr, 0)
+    reset_counts()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(device)
     runs = []
@@ -728,8 +734,7 @@ def run_decode_slice(results, cfg, device, fused=False):
         status, out = decode(comp, len(body))
         runs.append((kind, body, comp, status, out,
                      time.perf_counter() - t0))
-    launches = {name: getattr(mod, attr)
-                for name, (mod, attr) in counters.items()}
+    launches = read_decode_counts()
     peak = torch.cuda.max_memory_allocated(device)
 
     for kind, body, comp, status, out, secs in runs:
@@ -815,7 +820,6 @@ def run_many(cfg, device, seed, n_streams=256, mib=1):
             or want[4][0] == 0 or len(want[5][1]) != cfg.rsi_len_bytes):
         raise AssertionError("native.decode: unexpected reference results")
 
-    counters = decode_counters()
     lt.decode_buffers(comps[:16], cfg, sizes[:16], device=device)  # warm-up
     out = {}
     # each route twice, in turn: the first call of a route also pays for
@@ -830,14 +834,12 @@ def run_many(cfg, device, seed, n_streams=256, mib=1):
             return lt.decode_buffers(comps, cfg, sizes, device=device,
                                      fused=fused)
 
-        for mod, attr in counters.values():
-            setattr(mod, attr, 0)
+        reset_counts()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         got = decode()
         secs = time.perf_counter() - t0
-        launches = {name: getattr(mod, attr)
-                    for name, (mod, attr) in counters.items()}
+        launches = read_decode_counts()
         for i, (g, w) in enumerate(zip(got, want)):
             if g != w:
                 raise AssertionError(
@@ -863,31 +865,79 @@ def run_many(cfg, device, seed, n_streams=256, mib=1):
     return out
 
 
+# each kernel's plain version, (module, attribute) where its wrapper looks
+# it up: on the card nothing of the main paths may call one
+PLAIN_VERSIONS = [
+    ("libaec_tpu_torch.kernels.encode_cuda", "encode_fields_plain"),
+    ("libaec_tpu_torch.kernels.encode_cuda", "encode_kmap_plain"),
+    ("libaec_tpu_torch.ops.bitpack", "merge_windows"),
+    ("libaec_tpu_torch.kernels.decode_cuda", "decode_blocks_plain"),
+    ("libaec_tpu_torch.kernels.unpredict_cuda", "unpredict_swizzle_plain"),
+    ("libaec_tpu_torch.kernels.unpredict_cuda", "unpredict_rsis_plain"),
+    ("libaec_tpu_torch.kernels.unpredict_cuda", "samples_to_bytes_plain"),
+    ("libaec_tpu_torch.kernels.decode_fused_cuda",
+     "decode_unpredict_swizzle_plain"),
+]
+PLAIN_CALLS = {}   # "module.attribute" -> calls since reset_counts
+PLAIN_CHECKS = []  # the labels of the runs checked for plain calls
+
+
+def count_plain_versions():
+    """Wrap each of PLAIN_VERSIONS in a counter of its calls (once a
+    process).  From then on read_counts reports their sum as
+    "plain_versions", which check_launched and check_route hold to 0."""
+    import importlib
+
+    for mod_name, attr in PLAIN_VERSIONS:
+        key = f"{mod_name.rsplit('.', 1)[1]}.{attr}"
+        if key in PLAIN_CALLS:
+            continue
+        mod = importlib.import_module(mod_name)
+
+        def counted(*args, _fn=getattr(mod, attr), _key=key, **kwargs):
+            PLAIN_CALLS[_key] += 1
+            return _fn(*args, **kwargs)
+
+        PLAIN_CALLS[key] = 0
+        setattr(mod, attr, counted)
+
+
 def reset_counts():
-    """Every kernel wrapper's launch count to 0."""
+    """Every kernel wrapper's launch count, and every plain version's
+    call count, to 0."""
     from libaec_tpu_torch.kernels import encode_cuda, merge_cuda
 
     encode_cuda.launches = merge_cuda.launches = 0
     encode_cuda.kmap_launches = encode_cuda.resume_launches = 0
     for mod, attr in decode_counters().values():
         setattr(mod, attr, 0)
+    for key in PLAIN_CALLS:
+        PLAIN_CALLS[key] = 0
 
 
 def read_counts():
-    """Every kernel wrapper's launch count: {wrapper: count}."""
+    """Every kernel wrapper's launch count: {wrapper: count}; once
+    count_plain_versions ran, also the plain versions' calls summed
+    ("plain_versions")."""
     from libaec_tpu_torch.kernels import encode_cuda, merge_cuda
 
-    return {"encode_fields": encode_cuda.launches,
-            "encode_kmap": encode_cuda.kmap_launches,
-            "encode_fields_resume": encode_cuda.resume_launches,
-            "merge_windows": merge_cuda.launches,
-            **{name: getattr(mod, attr)
-               for name, (mod, attr) in decode_counters().items()}}
+    counts = {"encode_fields": encode_cuda.launches,
+              "encode_kmap": encode_cuda.kmap_launches,
+              "encode_fields_resume": encode_cuda.resume_launches,
+              "merge_windows": merge_cuda.launches,
+              **{name: getattr(mod, attr)
+                 for name, (mod, attr) in decode_counters().items()}}
+    if PLAIN_CALLS:
+        counts["plain_versions"] = sum(PLAIN_CALLS.values())
+    return counts
 
 
 def check_launched(label, counts, route):
-    """Every wrapper of the route launched, and no other."""
+    """Every wrapper of the route launched, and no other (no plain
+    version either)."""
     print(f"slice launches [{label}] {json.dumps(counts)}")
+    if "plain_versions" in counts:
+        PLAIN_CHECKS.append(label)
     for name, count in counts.items():
         if (count > 0) != (name in route):
             raise AssertionError(f"{label}: {name} launched {count} times; "
@@ -895,6 +945,37 @@ def check_launched(label, counts, route):
 
 
 ENCODE_ROUTE = ["encode_fields", "merge_windows"]
+
+
+def read_decode_counts():
+    """read_counts of the decode wrappers (and of the plain versions)."""
+    counts = read_counts()
+    return {name: counts[name] for name in (*decode_counters(),
+                                            "plain_versions")
+            if name in counts}
+
+
+def encode_chunks(cfg, n_bytes, rsis_per_chunk=None):
+    """Launches of each of kernels 1 and 2 in one encode_buffer call on
+    n_bytes on the card: one a chunk of whole RSIs, one for the short last
+    RSI."""
+    from libaec_tpu_torch.encode import default_rsis_per_chunk
+
+    n_full, rem = divmod(n_bytes // cfg.bytes_per_sample,
+                         cfg.samples_per_rsi)
+    per = rsis_per_chunk or default_rsis_per_chunk(cfg)
+    return -(-n_full // per) + (rem > 0)
+
+
+def check_encode_launches(label, cfg, counts, sizes, rsis_per_chunk=None):
+    """Each of kernels 1 and 2 launched once for each chunk and each short
+    last RSI of encode_buffer calls on buffers of `sizes` bytes."""
+    want = sum(encode_chunks(cfg, n, rsis_per_chunk) for n in sizes)
+    for name in ENCODE_ROUTE:
+        if counts[name] != want:
+            raise AssertionError(f"{label}: {name} launched {counts[name]} "
+                                 f"times, expected {want} (the chunks and "
+                                 f"the short last RSIs)")
 
 
 def c_sz_compress(src, param):
@@ -950,7 +1031,6 @@ def run_sz(device, seed):
     32-bit pixels (the interleave path), compressed natively and
     decompressed by sz_decompress_batch."""
     from libaec_tpu_torch import szip
-    from libaec_tpu_torch.cli import launch_counts
 
     rng = np.random.default_rng(seed)
     mask = szip.SZ_MSB_OPTION_MASK | szip.SZ_NN_OPTION_MASK
@@ -971,7 +1051,7 @@ def run_sz(device, seed):
     t0 = time.perf_counter()
     big_comp = szip.sz_buffto_buff_compress(big, param, device=device)
     big_secs = time.perf_counter() - t0
-    check_launched("sz compress 64 MiB", launch_counts(), ENCODE_ROUTE)
+    check_launched("sz compress 64 MiB", read_counts(), ENCODE_ROUTE)
     if big_comp != c_sz_compress(big, param):
         raise AssertionError("SZ 64 MiB stream differs from the C surface")
     print(f"slice sz_buffto_buff_compress [64 MiB, 16-bit ppb 32 pps 1024] "
@@ -1003,7 +1083,7 @@ def run_sz(device, seed):
               f"MiB/s={total / secs / 2**20:.2f} "
               f"per_chunk_native_MiB/s={total / single_secs / 2**20:.2f} "
               f"identical_to_single_and_input=True")
-        check_launched(f"sz batch, {tag}", launch_counts(),
+        check_launched(f"sz batch, {tag}", read_counts(),
                        decode_route(param_cfg(param), False))
     with decode_timers() as spent:
         host_breakdown("sz_decompress_batch 128 x 1 MiB",
@@ -1018,7 +1098,7 @@ def run_sz(device, seed):
     secs = time.perf_counter() - t0
     if back != big:
         raise AssertionError("64 MiB SZ stream does not decompress to input")
-    check_launched("sz decompress 64 MiB", launch_counts(),
+    check_launched("sz decompress 64 MiB", read_counts(),
                    decode_route(param_cfg(param), False))
     print(f"slice sz_buffto_buff_decompress [64 MiB] bytes={len(big)} "
           f"seconds={secs:.4f} MiB/s={len(big) / secs / 2**20:.2f} "
@@ -1048,7 +1128,7 @@ def run_sz(device, seed):
               f"bytes={sum(sizes)} seconds={secs:.4f} "
               f"MiB/s={sum(sizes) / secs / 2**20:.2f} "
               f"identical_to_single_and_input=True")
-        check_launched(f"sz batch, {label}", launch_counts(),
+        check_launched(f"sz batch, {label}", read_counts(),
                        decode_route(param_cfg(param), False))
         with decode_timers() as spent:
             host_breakdown(f"sz_decompress_batch {label}",
@@ -1094,7 +1174,6 @@ def run_stream(cfg, device, seed, mib=32):
     import gen
 
     from libaec_tpu_torch import AEC_FLUSH, AEC_NO_FLUSH, native, stream
-    from libaec_tpu_torch.cli import launch_counts
 
     rng = np.random.default_rng(seed)
     data = pack_samples(gen.gen_values(
@@ -1132,7 +1211,7 @@ def run_stream(cfg, device, seed, mib=32):
     t0 = time.perf_counter()
     comp = encode()
     secs = time.perf_counter() - t0
-    counts = launch_counts()
+    counts = read_counts()
     if comp != native.encode(data, cfg)[1]:
         raise AssertionError("stream encode differs from native.encode")
     print(f"slice aec_encode [{cfg.bits_per_sample}-bit stream, "
@@ -1141,6 +1220,17 @@ def run_stream(cfg, device, seed, mib=32):
           f"MiB/s={len(data) / secs / 2**20:.2f} "
           f"identical_to_native=True")
     check_launched("stream encode", counts, ENCODE_ROUTE)
+    # one launch a call that completes an RSI, one for the short last RSI
+    held, calls = 0, 0
+    for piece in pieces:
+        held += len(piece)
+        calls += held >= cfg.rsi_len_bytes
+        held %= cfg.rsi_len_bytes
+    calls += held >= cfg.bytes_per_sample
+    for name in ENCODE_ROUTE:
+        if counts[name] != calls:
+            raise AssertionError(f"stream encode: {name} launched "
+                                 f"{counts[name]} times, expected {calls}")
     with encode_timers() as spent:
         host_breakdown("stream encode", encode, spent)
     profile_call("stream encode", encode)
@@ -1232,10 +1322,12 @@ def run_cli(device, seed):
                                      f"from native")
             check_launched(f"cli {op} [{label}]",
                            json.loads(line[len("launches "):]), route)
+            reset_counts()
             t1 = time.perf_counter()
             if cli.main(args) != 0:
                 raise AssertionError(f"cli.main {op} [{label}] failed")
             in_secs = time.perf_counter() - t1
+            check_launched(f"cli.main {op} [{label}]", read_counts(), route)
             if Path(out).read_bytes() != expect:
                 raise AssertionError(f"cli.main {op} [{label}]: file "
                                      f"differs from native")
@@ -1293,6 +1385,7 @@ def mesh_rank(device, path, cfg_args, per, launched):
     from libaec_tpu_torch.parallel import dryrun
 
     start_s = time.time() - launched
+    count_plain_versions()
     cfg = Config(*cfg_args)
     world = dist.get_world_size()
     raw = np.fromfile(path, np.uint8, world * per * cfg.rsi_len_bytes)
@@ -1561,6 +1654,7 @@ def run_wide_path(label, cfg, data, device, smi):
         raise AssertionError(f"{label}: decode differs from native.decode "
                              "or the input")
     check_launched(f"{label} encode", enc_counts, ENCODE_ROUTE)
+    check_encode_launches(f"{label} encode", cfg, enc_counts, [len(data)])
     check_launched(f"{label} decode", dec_counts, decode_route(cfg, False))
     print(f"slice wide [{label}] bytes={len(data)} stream_bytes={len(comp)} "
           f"ratio={len(data) / len(comp):.4f} "
@@ -1618,9 +1712,8 @@ def run_sz_small_blocks(device, seed, smi, ppb=4, n_chunks=128):
         raise AssertionError(f"SZ ppb {ppb}: sz_decompress_batch differs "
                              "from the per-chunk decompress or the input")
     check_launched(f"sz ppb {ppb} compress", enc_counts, ENCODE_ROUTE)
-    if enc_counts["encode_fields"] != n_chunks:
-        raise AssertionError(f"SZ ppb {ppb}: {enc_counts['encode_fields']} "
-                             f"encode launches for {n_chunks} chunks")
+    check_encode_launches(f"sz ppb {ppb} compress", cfg, enc_counts,
+                          [len(c) for c in chunks])
     check_launched(f"sz ppb {ppb} batch", dec_counts,
                    decode_route(cfg, False))
     print(f"slice wide [SZ ppb {ppb} pps {param.pixels_per_scanline}, "
@@ -1781,6 +1874,210 @@ def run_large_rsi(device, smi):
     check_launched("one RSI of 64 Mi samples", counts,
                    ENCODE_ROUTE + decode_route(cfg, False))
     return counts
+
+
+def short_rsi_configs():
+    """Phase 19's configs: the bench config, 24-bit samples in 3 bytes,
+    sar32bit (AEC_PAD_RSI), SZIP's blocks of 4 pixels and blocks of 1024
+    samples (kernel 1's wide path)."""
+    from libaec_tpu_torch import (AEC_DATA_3BYTE, AEC_DATA_MSB,
+                                  AEC_DATA_PREPROCESS, Config)
+
+    msb, pp = AEC_DATA_MSB, AEC_DATA_PREPROCESS
+    return [("bench 16-bit MSB pp bs64 rsi256", Config(16, 64, 256, msb | pp)),
+            ("24-bit MSB pp 3-byte bs64 rsi256",
+             Config(24, 64, 256, msb | pp | AEC_DATA_3BYTE)),
+            ("sar32bit 32-bit MSB pp PAD_RSI bs64 rsi4096",
+             sar32bit_config()),
+            ("SZ ppb 4 16-bit MSB NN pps 512", param_cfg(sz_small_param(4))),
+            large_block_configs()[1]]
+
+
+def short_rsi_data(cfg, nb, seed):
+    """Stream bytes of a short last RSI of nb blocks: its last block short
+    of a random number of samples (at nb 1, of all but one: a tail of one
+    sample), every tests/gen.py kind in turn."""
+    import gen
+
+    rng = np.random.default_rng(seed)
+    bs = cfg.block_size
+    n = 1 if nb == 1 else nb * bs - int(rng.integers(0, bs))
+    per = -(-n // len(gen.KINDS))
+    vals = np.concatenate([gen.gen_values(rng, per, cfg.bits_per_sample,
+                                          cfg.signed, kind)
+                           for kind in gen.KINDS])[:n]
+    return np.frombuffer(pack_samples(vals, cfg.bits_per_sample, cfg.flags),
+                         np.uint8)
+
+
+def run_short_rsi_kernels(device):
+    """19a. Kernels 1 and 2 on a stream's short last RSI as encode_tail
+    gives it to them (encode.pad_tail: nb blocks, the last filled with
+    repeats of the last sample; to kernel 1 a chunk of one RSI of nb
+    blocks), at nb 1, 2 and rsi - 1 of each of short_rsi_configs, from k
+    3 (kmax where lower) and at bit cursor 5, against their plain
+    versions on the same inputs.  Returns (kernel 1's and 2's max_abs_err,
+    the median ms of each over the cases)."""
+    from libaec_tpu_torch.encode import pad_tail
+    from libaec_tpu_torch.kernels import encode_cuda, merge_cuda
+    from libaec_tpu_torch.ops import bitpack
+
+    err1 = err2 = 0
+    times1, times2 = [], []
+    for i, (name, cfg) in enumerate(short_rsi_configs()):
+        for nb in sorted({1, 2, cfg.rsi - 1}):
+            raw, got_nb = pad_tail(cfg, short_rsi_data(cfg, nb, 19 * i + nb))
+            assert got_nb == nb
+            raw = torch.from_numpy(raw).to(device)
+            k0 = torch.tensor([min(3, max(cfg.kmax, 0))], dtype=torch.int32,
+                              device=device)
+            got, ms1 = timed(lambda: encode_cuda.encode_fields(
+                cfg, raw, k0, nb=nb), 20)
+            want, plain1 = timed(lambda: encode_cuda.encode_fields_plain(
+                cfg, raw, k0, nb=nb), 3, warmup=1)
+            e1 = max(max_abs_err(g, w) for g, w in zip(got, want))
+            win, block_bits, _ = got
+            W0 = win.shape[1]
+            nwords = merge_cuda.word_count(cfg, nb, W0 - 1)
+            b0 = torch.tensor([5], dtype=torch.int64, device=device)
+            (words, tail), ms2 = timed(lambda: merge_cuda.merge_windows(
+                win, block_bits, b0, nwords), 20)
+            (pwords, ptail), plain2 = timed(lambda: bitpack.merge_windows(
+                win, block_bits, b0, nwords), 3, warmup=1)
+            used = merge_cuda.used_words(int(ptail[0]))
+            e2 = max(max_abs_err(words[:used], pwords[:used]),
+                     max_abs_err(tail, ptail))
+            bound1 = encode_bound(cfg, nb, W0)
+            held = int(((block_bits.to(torch.int64) + 31) // 32).sum())
+            bound2 = bound_ms(4 * (held + nb + used) + 8 + 16, 4 * held)
+            print(f"short rsi [{name}] nb={nb} samples_padded="
+                  f"{nb * cfg.block_size} k_init={int(k0)} "
+                  f"k_final={int(got[2])} total_bits={int(tail[0])} | "
+                  f"encode_fields max_abs_err={e1} ms={ms1:.4f} "
+                  f"plain_ms={plain1:.4f} bound_ms={bound1[0]:.3e} "
+                  f"({bound1[1]}) | merge_windows bit0=5 max_abs_err={e2} "
+                  f"ms={ms2:.4f} plain_ms={plain2:.4f} "
+                  f"bound_ms={bound2[0]:.3e} ({bound2[1]})")
+            if e1 or e2:
+                raise AssertionError(f"short rsi [{name}] nb={nb}: kernels "
+                                     "differ from their plain versions")
+            err1, err2 = max(err1, e1), max(err2, e2)
+            times1.append(ms1)
+            times2.append(ms2)
+    return err1, err2, statistics.median(times1), statistics.median(times2)
+
+
+def run_short_rsi_paths(device, smi, seed, mib=8):
+    """19b. The encode entry points on the card over buffers that end in a
+    short last RSI of one sample, of one block less a sample and of rsi -
+    1 blocks, after several chunks of `mib` MiB in all, at each of
+    short_rsi_configs:
+    encode_buffer (held against native.encode; its launches one a chunk
+    and one for the tail), encode_buffer_status, the stream in uneven
+    pieces (a launch a call that completes an RSI and one at AEC_FLUSH);
+    and the SZ compress of chunks of 1 MiB less a scanline and a half,
+    held against the C szlib surface (the SZ layer pads every scanline to
+    a whole RSI, sz_compat.c:71-94, so its buffer ends in none: a launch
+    a chunk).  No plain version runs.  Returns the launches."""
+    import libaec_tpu_torch as lt
+    from libaec_tpu_torch import AEC_FLUSH, AEC_NO_FLUSH, native, stream
+    from libaec_tpu_torch import szip
+
+    rng = np.random.default_rng(seed)
+    totals = defaultdict(int)
+
+    def add(counts):
+        for name, count in counts.items():
+            totals[name] += count
+
+    for name, cfg in short_rsi_configs():
+        L, bsz = cfg.rsi_len_bytes, cfg.bytes_per_sample
+        n_full = max(6, (mib << 20) // L)
+        per = n_full // 3
+        body = wide_data(cfg, n_full * cfg.samples_per_rsi,
+                         int(rng.integers(1 << 30)),
+                         ("lowentropy", "midentropy", "zero_runs", "random"))
+        for tail, rem in (("one sample", 1),
+                          ("a block less a sample", cfg.block_size - 1),
+                          ("rsi - 1 blocks", (cfg.rsi - 1) * cfg.block_size)):
+            data = body + body[L:L + rem * bsz] + b"\x01"[:bsz - 1]
+            want = native.encode(data, cfg)[1]
+            label = f"{name}, tail of {tail}"
+            reset_counts()
+            t0 = time.perf_counter()
+            got = lt.encode_buffer(data, cfg, device=device,
+                                   force_device=True, rsis_per_chunk=per)
+            secs = time.perf_counter() - t0
+            counts = read_counts()
+            if got != want:
+                raise AssertionError(f"short rsi [{label}]: encode_buffer "
+                                     "differs from native.encode")
+            check_launched(f"short rsi encode_buffer [{label}]", counts,
+                           ENCODE_ROUTE)
+            check_encode_launches(label, cfg, counts, [len(data)], per)
+            add(counts)
+            print(f"slice short rsi [encode_buffer {label}] "
+                  f"bytes={len(data)} chunks={-(-n_full // per)} "
+                  f"seconds={secs:.4f} identical_to_native=True on {smi}")
+        reset_counts()
+        status, got = lt.encode_buffer_status(data, cfg, len(want),
+                                              device=device,
+                                              force_device=True)
+        counts = read_counts()
+        if (status, got) != (0, want):
+            raise AssertionError(f"short rsi [{name}]: encode_buffer_status "
+                                 "differs from native.encode")
+        check_launched(f"short rsi encode_buffer_status [{name}]", counts,
+                       ENCODE_ROUTE)
+        add(counts)
+
+        s = stream.AecStream(cfg.bits_per_sample, cfg.block_size, cfg.rsi,
+                             cfg.flags, device=device)
+        stream.aec_encode_init(s)
+        reset_counts()
+        cuts = sorted(int(c) for c in rng.integers(0, len(data), 5))
+        calls, held = 0, 0
+        for a, b in zip([0] + cuts, cuts + [len(data)]):
+            s.next_in, s.avail_in = data[a:b], None
+            stream.aec_encode(s, AEC_NO_FLUSH)
+            held += b - a
+            calls += held >= L
+            held %= L
+        s.next_in, s.avail_in = b"", None
+        stream.aec_encode(s, AEC_FLUSH)
+        counts = read_counts()
+        if stream.aec_encode_end(s) != 0 or bytes(s.next_out) != want:
+            raise AssertionError(f"short rsi [{name}]: the stream differs "
+                                 "from native.encode")
+        check_launched(f"short rsi stream [{name}]", counts, ENCODE_ROUTE)
+        if counts["encode_fields"] != calls + 1:
+            raise AssertionError(f"short rsi stream [{name}]: "
+                                 f"{counts['encode_fields']} launches, "
+                                 f"expected {calls + 1}")
+        add(counts)
+        print(f"slice short rsi [stream {name}] bytes={len(data)} "
+              f"pieces={len(cuts) + 1} identical_to_native=True on {smi}")
+
+    param = sz_small_param(4)
+    cfg = param_cfg(param)
+    chunks = [c[:len(c) - 3 * param.pixels_per_scanline]
+              for c in sz_chunks(rng, 8, 16, True)]
+    reset_counts()
+    comps = [szip.sz_buffto_buff_compress(c, param, device=device,
+                                          force_device=True) for c in chunks]
+    counts = read_counts()
+    if comps != [c_sz_compress(c, param) for c in chunks]:
+        raise AssertionError("short rsi [SZ ppb 4]: streams differ from the "
+                             "C surface")
+    check_launched("short rsi sz compress [SZ ppb 4]", counts, ENCODE_ROUTE)
+    check_encode_launches("short rsi sz compress", cfg, counts,
+                          [-(-len(c) // cfg.rsi_len_bytes) * cfg.rsi_len_bytes
+                           for c in chunks])
+    add(counts)
+    print(f"slice short rsi [sz_buffto_buff_compress SZ ppb 4, "
+          f"{len(chunks)} chunks of 1 MiB less a scanline and a half] "
+          f"identical_to_c_szlib=True on {smi}")
+    return dict(totals)
 
 
 def run_large_many(label, cfg, data, device, smi, n_streams=64):
@@ -2022,6 +2319,7 @@ def main():
     _build.load()
     print(f"build {_build.library_path().name} "
           f"seconds={time.perf_counter() - t0:.2f}")
+    count_plain_versions()  # every main path below is held to no calls
 
     # 3. kernel 1 against its plain version, each config at the chunk the
     #    main path gives it (encode.default_rsis_per_chunk)
@@ -2326,6 +2624,17 @@ def main():
         del data
     for kernel, count in run_large_rsi(device, smi).items():
         large_launches[kernel] += count
+
+    # 19. a stream's short last RSI: kernels 1 and 2 at nb 1, 2 and rsi - 1
+    #     against their plain versions, then every encode entry point over
+    #     buffers that end in one
+    print(f"short last RSIs on {smi}")
+    e1, e2, short_ms1, short_ms2 = run_short_rsi_kernels(device)
+    err1, err2 = max(err1, e1), max(err2, e2)
+    short_launches = run_short_rsi_paths(device, smi, 20261031)
+    print(f"plain versions on the main paths: "
+          f"{sum(PLAIN_CALLS.values())} calls in {len(PLAIN_CHECKS)} "
+          f"checked runs (and in every rank of phase 16)")
     foreign = sorted(m for m in sys.modules if m.split(".")[0] in (
         "jax", "jaxlib", "libaec_tpu"))
     if foreign:
@@ -2340,19 +2649,20 @@ def main():
                 "plain_ms": plain_ms, "bound_ms": bound[0],
                 "bound_by": bound[1], "library_ms": None}
 
-    # the encode and decode paths' launches, phases 16's, 17's and 18's:
-    # kernel 1's entry counts encode_fields, encode_kmap and
-    # encode_fields_resume
+    # the encode and decode paths' launches, phases 16's to 19's: kernel
+    # 1's entry counts encode_fields, encode_kmap and encode_fields_resume
     kernels = [
         entry("encode_fields", "encode.cu", "encode_pallas.py:83",
               launches["encode_fields"] + mesh_launches["encode_kmap"]
               + mesh_launches["encode_fields_resume"]
               + wide_launches["encode_fields"]
-              + large_launches["encode_fields"], err1, ms1, plain1, bound1),
+              + large_launches["encode_fields"]
+              + short_launches["encode_fields"], err1, ms1, plain1, bound1),
         entry("merge_windows", "merge.cu", "merge_pallas.py:77",
               launches["merge_windows"] + mesh_launches["merge_windows"]
               + wide_launches["merge_windows"]
-              + large_launches["merge_windows"], err2, ms2, plain2, bound2),
+              + large_launches["merge_windows"]
+              + short_launches["merge_windows"], err2, ms2, plain2, bound2),
         entry("decode_blocks", "decode.cu", "decode_pallas.py:53",
               dec_launches["decode_blocks"] + mesh_launches["decode_blocks"]
               + wide_launches["decode_blocks"]
@@ -2369,6 +2679,9 @@ def main():
               fused_launches["decode_fused"], err6, ms6, plain6, bound6),
     ]
     kernels[0]["phases_ms"] = phase_ms  # the two-phase launches, 3b
+    # phase 19's short last RSIs, the median over its cases
+    kernels[0]["short_rsi_ms"], kernels[1]["short_rsi_ms"] = \
+        short_ms1, short_ms2
     kernels[1]["note"] = ("bit0 in [0, 32): a shard merges at its offset "
                           "mod 32; held at every bit0")
     print(f"launches on the many-streams path: "

@@ -4,9 +4,10 @@ Twin of libaec_tpu/encode.py's device route.  Whole-RSI chunks of raw
 stream bytes go through two kernels (kernels/encode_cuda.py,
 kernels/merge_cuda.py); the warm-start k and the bit cursor modulo 8 stay
 in device tensors between chunks, so the host never waits between
-chunks.  Small buffers go to the port's native encoder (native/); the
-stream's short last RSI goes through the kernels' plain versions on the
-host (`encode_tail`).  Nothing here
+chunks.  The stream's short last RSI (`encode_tail`) goes through the
+same two kernels as a chunk of one RSI of fewer blocks, the last item of
+the pipeline.  Small buffers go to the port's native encoder (native/).
+The kernels' plain versions run only for device="cpu".  Nothing here
 imports the JAX package.
 """
 from concurrent.futures import ThreadPoolExecutor
@@ -21,7 +22,6 @@ from .constants import AEC_OK, AEC_STREAM_ERROR, AecStreamError
 from .kernels import encode_cuda, merge_cuda
 from .hostbytes import HostBytes
 from .kernels.encode_cuda import worst_case_bits_per_block
-from .ops import bitpack
 from .ops.u32 import words_to_u8
 
 MAX_INFLIGHT = 4  # chunks queued on the device before the oldest is fetched
@@ -71,15 +71,16 @@ def stream_capacity(cfg, n_samples):
     return -(-bits // 8) + 1 if nb else 0
 
 
-def encode_chunk(cfg, raw_u8, k_dev, bit0_dev):
+def encode_chunk(cfg, raw_u8, k_dev, bit0_dev, nb=None):
     """One chunk, twin of _jax_chunk_fn_bytes (libaec_tpu/encode.py:222).
 
-    raw_u8: uint8 [n_rsi * rsi_len_bytes]; k_dev: int32 [1] incoming k;
-    bit0_dev: int64 [1] incoming bit cursor modulo 8, all on one device.
-    Returns (words int32 [nwords] in stream byte order with the front pad
-    word, total_bits int64 [1] incl. bit0, k_final int32 [1],
-    bit0_next int64 [1])."""
-    win, block_bits, k_final = encode_cuda.encode_fields(cfg, raw_u8, k_dev)
+    raw_u8: uint8 whole RSIs of nb blocks (None: cfg.rsi); k_dev: int32
+    [1] incoming k; bit0_dev: int64 [1] incoming bit cursor modulo 8, all
+    on one device.  Returns (words int32 [nwords] in stream byte order
+    with the front pad word, total_bits int64 [1] incl. bit0, k_final
+    int32 [1], bit0_next int64 [1])."""
+    win, block_bits, k_final = encode_cuda.encode_fields(cfg, raw_u8, k_dev,
+                                                         nb)
     nwords = merge_cuda.word_count(cfg, win.shape[0],
                                    encode_cuda.window_words(cfg) - 1)
     words, tail = merge_cuda.merge_windows(win, block_bits, bit0_dev, nwords)
@@ -104,30 +105,39 @@ def words_to_stream_bytes(words, total_bits):
     return words_to_u8(src)[4:4 + nbytes]
 
 
-def encode_tail(cfg, raw_tail, k_init, bit0):
-    """The stream's short last RSI, on the host: (stream bytes as a numpy
-    uint8 array, total_bits incl. bit0, k_final).
-
-    raw_tail: numpy uint8 bytes of the rem < samples_per_rsi samples after
-    the last whole RSI; the last block is filled with repeats of the last
-    sample (encode.c:676-685).  k_init is the incoming warm-start k, bit0
-    the stream's bit cursor modulo 8.  This runs the kernels' plain
-    versions on CPU tensors (the field pipeline of
-    encode_cuda.encode_fields_plain with nb < rsi blocks, then
-    ops/bitpack.merge_windows): at most one RSI per stream, which the JAX
-    package also encodes off the device (libaec_tpu/encode.py:476-488)."""
+def pad_tail(cfg, raw_tail):
+    """A stream's short last RSI as the kernels take it: (uint8 bytes of
+    nb whole blocks, nb).  raw_tail: numpy uint8 bytes of the rem <
+    samples_per_rsi samples after the last whole RSI; the last block is
+    filled with repeats of the last sample (encode.c:676-685)."""
     bs, bsz = cfg.block_size, cfg.bytes_per_sample
     rem = len(raw_tail) // bsz
     nb = -(-rem // bs)
-    last = raw_tail[(rem - 1) * bsz:rem * bsz]
-    raw = np.concatenate([raw_tail[:rem * bsz], np.tile(last, nb * bs - rem)])
-    win, block_bits, k_final = encode_cuda.encode_fields_plain(
-        cfg, torch.from_numpy(raw), torch.tensor([k_init]), nb=nb)
-    nwords = merge_cuda.word_count(cfg, nb, encode_cuda.window_words(cfg) - 1)
-    words, tail = bitpack.merge_windows(
-        win, block_bits, torch.tensor([bit0]), nwords)
-    total_bits = int(tail[0])
-    return words_to_stream_bytes(words, total_bits), total_bits, int(k_final)
+    raw = np.empty(nb * bs * bsz, dtype=np.uint8)
+    raw[:rem * bsz] = raw_tail[:rem * bsz]
+    raw.reshape(-1, bsz)[rem:] = raw_tail[(rem - 1) * bsz:rem * bsz]
+    return raw, nb
+
+
+def encode_tail(cfg, raw_tail, k_dev, bit0_dev, stager=None):
+    """The stream's short last RSI, coded as a chunk of one RSI of nb
+    blocks (nb <= cfg.rsi, fewer samples than an RSI): encode_chunk's
+    outputs, on k_dev's device.
+
+    raw_tail: numpy uint8 bytes of the samples after the last whole RSI;
+    k_dev, bit0_dev: the k and the bit cursor modulo 8 the chunks before
+    it left, device tensors as encode_chunk takes them.  The host only
+    pads the last block (pad_tail); the bytes go to the device through
+    `stager` (the pipeline's pinned ring) where one is given, and kernels
+    1 and 2 code them on the card, their plain versions on the CPU, as
+    the JAX package's stream codes its final piece on the device
+    (libaec_tpu/stream.py:90-94)."""
+    raw, nb = pad_tail(cfg, raw_tail)
+    if stager is not None:
+        x = stager.stage(raw)
+    else:
+        x = torch.from_numpy(raw).to(k_dev.device)
+    return encode_chunk(cfg, x, k_dev, bit0_dev, nb)
 
 
 def encode_blocks(cfg, raw_u8, nb, k, bit0, device):
@@ -136,22 +146,23 @@ def encode_blocks(cfg, raw_u8, nb, k, bit0, device):
     uint8 array, total_bits incl. bit0, k_final); twin of
     encode_blocks_jax (libaec_tpu/encode.py:263).
 
-    raw_u8: numpy uint8 stream bytes.  With nb == cfg.rsi and whole RSIs
-    of bytes, they are coded by the kernels on `device` (their plain
-    versions for "cpu"), any number of RSIs in one launch of each; k and
-    bit0 go in as one-element tensors and k comes back with one
-    `.item()`.  Otherwise they are the stream's last, short RSI (fewer
-    samples than an RSI, nb = their blocks, the last block filled with
-    repeats of the last sample), coded on the host by encode_tail."""
-    if nb < cfg.rsi or len(raw_u8) % cfg.rsi_len_bytes:
-        return encode_tail(cfg, raw_u8, k, bit0)
+    raw_u8: numpy uint8 stream bytes: with nb == cfg.rsi whole RSIs, any
+    number of them in one launch of each kernel; otherwise the stream's
+    last, short RSI (fewer samples than an RSI, nb = their blocks), coded
+    by encode_tail.  Either runs on the kernels on `device`, their plain
+    versions for "cpu"; k and bit0 go in as one-element tensors and k
+    comes back with one `.item()`."""
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("CUDA device requested but none is available")
-    raw = torch.from_numpy(np.array(raw_u8, dtype=np.uint8)).to(device)
-    words, total_bits, k_final, _ = encode_chunk(
-        cfg, raw, torch.tensor([k], dtype=torch.int32, device=device),
-        torch.tensor([bit0], dtype=torch.int64, device=device))
+    k_dev = torch.tensor([k], dtype=torch.int32, device=device)
+    b0_dev = torch.tensor([bit0], dtype=torch.int64, device=device)
+    if nb < cfg.rsi or len(raw_u8) % cfg.rsi_len_bytes:
+        words, total_bits, k_final, _ = encode_tail(cfg, raw_u8, k_dev,
+                                                    b0_dev)
+    else:
+        raw = torch.from_numpy(np.array(raw_u8, dtype=np.uint8)).to(device)
+        words, total_bits, k_final, _ = encode_chunk(cfg, raw, k_dev, b0_dev)
     total_bits = int(total_bits)
     return (words_to_stream_bytes(words, total_bits), total_bits,
             int(k_final))
@@ -184,25 +195,28 @@ class _Stager:
         return dev
 
 
-def encode_chunks_pipelined(cfg, chunks, on_chunk, device):
-    """Dispatch whole-RSI chunks back to back (twin of
-    encode_chunks_jax_pipelined, libaec_tpu/encode.py:271).
+def encode_chunks_pipelined(cfg, chunks, on_chunk, device, tail=None):
+    """Dispatch whole-RSI chunks back to back, then the stream's short
+    last RSI (twin of encode_chunks_jax_pipelined,
+    libaec_tpu/encode.py:271, with the tail as its last item).
 
-    chunks: iterable of numpy uint8 arrays of whole RSIs.  Each result is
-    handed to on_chunk(words, total_bits_host, done_event) once
-    MAX_INFLIGHT newer chunks are queued (or at the end); total_bits_host
-    is a host tensor that is valid after done_event (None on the CPU).
-    Returns the final k as an int32 [1] device tensor."""
+    chunks: iterable of numpy uint8 arrays of whole RSIs; tail: numpy
+    uint8 bytes of the samples after them (encode_tail), or None.  Each
+    result is handed to on_chunk(words, total_bits_host, done_event) once
+    MAX_INFLIGHT newer chunks are queued (or at the end);
+    total_bits_host is a host tensor that is valid after done_event
+    (None on the CPU).  Returns the final k (int32 [1]) and bit cursor
+    modulo 8 (int64 [1]) as device tensors: the host never waits on
+    them."""
     device = torch.device(device)
     cuda = device.type == "cuda"
     k = torch.zeros(1, dtype=torch.int32, device=device)
     b0 = torch.zeros(1, dtype=torch.int64, device=device)
     stager = _Stager(device, MAX_INFLIGHT + 1) if cuda else None
+
     pending = []
-    for chunk in chunks:
-        raw = stager.stage(chunk) if cuda else torch.from_numpy(
-            np.array(chunk))
-        words, total_bits, k, b0 = encode_chunk(cfg, raw, k, b0)
+
+    def queue(words, total_bits):
         if cuda:
             tb_host = total_bits.to("cpu", non_blocking=True)
             done = torch.cuda.Event()
@@ -212,9 +226,18 @@ def encode_chunks_pipelined(cfg, chunks, on_chunk, device):
         pending.append((words, tb_host, done))
         if len(pending) >= MAX_INFLIGHT:
             on_chunk(*pending.pop(0))
+
+    for chunk in chunks:
+        raw = stager.stage(chunk) if cuda else torch.from_numpy(
+            np.array(chunk))
+        words, total_bits, k, b0 = encode_chunk(cfg, raw, k, b0)
+        queue(words, total_bits)
+    if tail is not None:
+        words, total_bits, k, b0 = encode_tail(cfg, tail, k, b0, stager)
+        queue(words, total_bits)
     for item in pending:
         on_chunk(*item)
-    return k
+    return k, b0
 
 
 def default_rsis_per_chunk(cfg):
@@ -273,41 +296,37 @@ def encode_buffer(data, cfg: Config, device="cuda", force_device=False,
     if rsis_per_chunk is None:
         rsis_per_chunk = default_rsis_per_chunk(cfg)
 
-    k_final = 0
-    if n_full:
-        chunk_bytes = rsis_per_chunk * S * bsz
+    full = n_full * S * bsz
+    chunk_bytes = rsis_per_chunk * S * bsz
 
-        def gen_chunks():
-            for s in range(0, n_full * S * bsz, chunk_bytes):
-                yield raw[s:min(s + chunk_bytes, n_full * S * bsz)]
+    def gen_chunks():
+        for s in range(0, full, chunk_bytes):
+            yield raw[s:min(s + chunk_bytes, full)]
 
-        side = torch.cuda.Stream(device) if device.type == "cuda" else None
+    side = torch.cuda.Stream(device) if device.type == "cuda" else None
 
-        def materialise(words, tb_host, done):
-            if done is not None:
-                done.synchronize()
-            with (torch.cuda.stream(side) if side is not None
-                  else nullcontext()):
-                tb = int(tb_host)
-                out.append(words_to_stream_bytes(words, tb), tb)
+    def materialise(words, tb_host, done):
+        if done is not None:
+            done.synchronize()
+        with (torch.cuda.stream(side) if side is not None
+              else nullcontext()):
+            tb = int(tb_host)
+            out.append(words_to_stream_bytes(words, tb), tb)
 
-        # one FIFO worker fetches the compressed slices (encode.py:444-466)
-        with ThreadPoolExecutor(1) as ex:
-            futs = []
+    # one FIFO worker fetches the compressed slices (encode.py:444-466),
+    # the short last RSI's after the chunks'
+    with ThreadPoolExecutor(1) as ex:
+        futs = []
 
-            def on_chunk(words, tb_host, done):
-                futs.append(ex.submit(materialise, words, tb_host, done))
-                if len(futs) >= 5:  # bound device-buffer residency
-                    futs[-5].result()
+        def on_chunk(words, tb_host, done):
+            futs.append(ex.submit(materialise, words, tb_host, done))
+            if len(futs) >= 5:  # bound device-buffer residency
+                futs[-5].result()
 
-            k_dev = encode_chunks_pipelined(cfg, gen_chunks(), on_chunk,
-                                            device)
-            for f in futs:
-                f.result()
-        k_final = int(k_dev)
-    if rem:
-        out.append(*encode_tail(cfg, raw[n_full * S * bsz:], k_final,
-                                out.bits % 8)[:2])
+        encode_chunks_pipelined(cfg, gen_chunks(), on_chunk, device,
+                                tail=raw[full:] if rem else None)
+        for f in futs:
+            f.result()
     return _check_capacity(out.finish(), out_size)
 
 

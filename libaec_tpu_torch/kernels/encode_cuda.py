@@ -14,7 +14,11 @@ each warp on its share of the block's segments of 64 samples, groups of
 a thread block of 8 warps on consecutive blocks (`wide_layout`).  The
 plain versions of its two algorithms that differ from the
 straightforward ones are ops/options.chain_k_tiled and
-ops/options.fs_tables_lanes.  Plain route:
+ops/options.fs_tables_lanes.  A stream's short last RSI (fewer samples
+than an RSI) is, to the kernel, a chunk of one RSI of nb < rsi blocks:
+`encode_fields(..., nb=nb)` passes nb where the C entry takes the RSI
+length, which every zero-run segment, reference sample and pad is
+measured from.  Plain route:
 `encode_fields_plain`, the field pipeline of ops/ (accessors, preprocess,
 zeroruns, options, fields, bitpack stage A) -- the twin of the JAX
 package's XLA pipeline, used only as a reference: on the CPU by the
@@ -152,10 +156,7 @@ def pad_rsis(cfg, block_bits, nb):
 
 
 def encode_fields_plain(cfg, raw_u8, k_init, nb=None):
-    """Plain version of the kernel; same contract as `encode_fields`.
-
-    nb is the number of blocks per RSI: cfg.rsi, or fewer for the short
-    last RSI of a stream (the host tail of encode.encode_buffer)."""
+    """Plain version of the kernel; same contract as `encode_fields`."""
     nb = cfg.rsi if nb is None else nb
     d_blk, ref, this_bs, ref_sample, z2 = _block_rows(cfg, raw_u8, nb)
     NB = d_blk.shape[0]
@@ -202,8 +203,11 @@ def _check(t, dtype, name):
         raise ValueError(f"{name} must be contiguous {dtype}")
 
 
-def _check_input(cfg, raw_u8):
-    if raw_u8.shape[0] == 0 or raw_u8.shape[0] % cfg.rsi_len_bytes:
+def _check_input(cfg, raw_u8, nb):
+    if not 1 <= nb <= cfg.rsi:
+        raise ValueError(f"nb must be in [1, {cfg.rsi}], got {nb}")
+    rsi_bytes = nb * cfg.block_size * cfg.bytes_per_sample
+    if raw_u8.shape[0] == 0 or raw_u8.shape[0] % rsi_bytes:
         raise ValueError("input must hold one or more whole RSIs")
     if raw_u8.device.type != "cpu":
         _check(raw_u8, torch.uint8, "raw_u8")
@@ -215,9 +219,10 @@ def _check_k(k, raw_u8, name):
         raise ValueError(f"{name} must be one int32 on the input's device")
 
 
-def _params(cfg, NB):
-    """The kernels' trailing C arguments from nb on, but the stream."""
-    return (NB, cfg.rsi, cfg.block_size, cfg.bits_per_sample,
+def _params(cfg, NB, nb):
+    """The kernels' trailing C arguments from nb on, but the stream: NB
+    blocks in RSIs of nb."""
+    return (NB, nb, cfg.block_size, cfg.bits_per_sample,
             cfg.bytes_per_sample, int(cfg.msb), int(cfg.preprocess),
             int(cfg.signed), cfg.id_len, cfg.kmax, window_words(cfg),
             int(cfg.pad_rsi), cfg.xmax, cfg.xmin, cfg.mask,
@@ -234,19 +239,23 @@ class Scratch(NamedTuple):
     comp: Optional[torch.Tensor] = None
 
 
-def encode_fields(cfg, raw_u8, k_init):
-    """raw_u8: uint8 [n_rsi * rsi_len_bytes] whole RSIs of stream bytes;
-    k_init: int32 [1], the incoming warm-start k, in device memory.
+def encode_fields(cfg, raw_u8, k_init, nb=None):
+    """raw_u8: uint8 whole RSIs of nb blocks of stream bytes; k_init:
+    int32 [1], the incoming warm-start k, in device memory.  nb is the
+    blocks an RSI: None for cfg.rsi, or fewer for a stream's short last
+    RSI (its last block filled with repeats of its last sample), which
+    the kernel codes as a chunk of one RSI of nb blocks.
 
     Returns (win int32 [NB, W0] u32 words, block_bits int32 [NB],
     k_final int32 [1]) on raw_u8's device."""
-    _check_input(cfg, raw_u8)
+    nb = cfg.rsi if nb is None else nb
+    _check_input(cfg, raw_u8, nb)
     if raw_u8.device.type == "cpu":
-        return encode_fields_plain(cfg, raw_u8, k_init)
+        return encode_fields_plain(cfg, raw_u8, k_init, nb=nb)
     _check_k(k_init, raw_u8, "k_init")
     lib = _build.load()
     dev = raw_u8.device
-    NB = raw_u8.shape[0] // cfg.rsi_len_bytes * cfg.rsi
+    NB = raw_u8.shape[0] // (nb * cfg.block_size * cfg.bytes_per_sample) * nb
     nt = tiles(cfg, NB)
 
     def empty(*shape, dtype):
@@ -263,7 +272,7 @@ def encode_fields(cfg, raw_u8, k_init):
         raw_u8.data_ptr(), win.data_ptr(), block_bits.data_ptr(),
         maps.data_ptr(), zflag.data_ptr(), comp.data_ptr(),
         tile_kin.data_ptr(), k_init.data_ptr(), k_final.data_ptr(),
-        *_params(cfg, NB), _build.stream_handle(dev))
+        *_params(cfg, NB, nb), _build.stream_handle(dev))
     _build.check(status, "aec_encode_fields")
     global launches
     launches += 1
@@ -277,7 +286,7 @@ def encode_kmap(cfg, raw_u8):
     raw_u8 as `encode_fields`.  Returns (kmap int32 [32]: entry k is the
     k that leaves the shard when k enters it, the identity past kmax;
     a Scratch for `encode_fields_resume`), on raw_u8's device."""
-    _check_input(cfg, raw_u8)
+    _check_input(cfg, raw_u8, cfg.rsi)
     if raw_u8.device.type == "cpu":
         return encode_kmap_plain(cfg, raw_u8), Scratch(raw_u8)
     lib = _build.load()
@@ -290,8 +299,8 @@ def encode_kmap(cfg, raw_u8):
     kmap = torch.empty(32, dtype=torch.int32, device=dev)
     status = lib.aec_encode_kmap(
         raw_u8.data_ptr(), scratch.maps.data_ptr(), scratch.zflag.data_ptr(),
-        scratch.comp.data_ptr(), kmap.data_ptr(), *_params(cfg, NB),
-        _build.stream_handle(dev))
+        scratch.comp.data_ptr(), kmap.data_ptr(),
+        *_params(cfg, NB, cfg.rsi), _build.stream_handle(dev))
     _build.check(status, "aec_encode_kmap")
     global kmap_launches
     kmap_launches += 1
@@ -318,7 +327,8 @@ def encode_fields_resume(cfg, scratch, k_in):
         raw_u8.data_ptr(), win.data_ptr(), block_bits.data_ptr(),
         scratch.maps.data_ptr(), scratch.zflag.data_ptr(),
         scratch.comp.data_ptr(), tile_kin.data_ptr(), k_in.data_ptr(),
-        k_final.data_ptr(), *_params(cfg, NB), _build.stream_handle(dev))
+        k_final.data_ptr(), *_params(cfg, NB, cfg.rsi),
+        _build.stream_handle(dev))
     _build.check(status, "aec_encode_resume")
     global resume_launches
     resume_launches += 1

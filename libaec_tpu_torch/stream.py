@@ -10,7 +10,8 @@ reference for any chunking of input and output.
 Encode: each call's whole RSIs go through encode.encode_blocks on the
 stream's device (kernels 1 and 2 on the card, their plain versions for
 "cpu"), with the warm-start k and the bit cursor carried on the host
-between calls; the short last RSI is coded on the host at AEC_FLUSH.
+between calls; so does the short last RSI at AEC_FLUSH, as a chunk of
+one RSI of fewer blocks.
 `device=None` uses the native streaming session (native.EncSession)
 instead.  Decode is on the host, as in the
 JAX package: the native offsets-only scan, the native decoder from an RSI
@@ -37,9 +38,9 @@ from .encode import encode_blocks
 class AecStream:
     """Mutable stream object mirroring struct aec_stream (libaec.h:67-97).
 
-    `device` is where the encode's whole RSIs are coded: "cuda" (the
-    default), "cpu" (the kernels' plain versions), or None (the native
-    session on the host)."""
+    `device` is where the encode's RSIs, the short last one too, are
+    coded: "cuda" (the default), "cpu" (the kernels' plain versions), or
+    None (the native session on the host)."""
 
     def __init__(self, bits_per_sample=8, block_size=8, rsi=2, flags=0,
                  device="cuda"):

@@ -780,8 +780,9 @@ def test_decode_buffers_matches_native(dev, cfg, fused):
                          ids=["bench16", "u24", "s13bs32"])
 def test_stream_encode_on_the_card(dev, cfg):
     """aec_encode in uneven pieces on the card: native.encode's stream,
-    one launch of kernels 1 and 2 for each call that completes an RSI;
-    dirty bits above bits_per_sample are masked."""
+    one launch of kernels 1 and 2 for each call that completes an RSI and
+    one for the short last RSI at AEC_FLUSH; dirty bits above
+    bits_per_sample are masked."""
     from libaec_tpu_torch import AEC_FLUSH, AEC_NO_FLUSH, stream
 
     rng = np.random.default_rng(cfg.bits_per_sample)
@@ -808,7 +809,7 @@ def test_stream_encode_on_the_card(dev, cfg):
     stream.aec_encode(s, AEC_FLUSH)
     assert stream.aec_encode_end(s) == 0
     assert bytes(s.next_out) == native.encode(clean, cfg)[1]
-    assert encode_cuda.launches - before == calls
+    assert encode_cuda.launches - before == calls + 1
 
 
 @pytest.mark.parametrize("args", [(48, 16, 32, 1024), (48, 16, 32, 1000),
@@ -1040,3 +1041,150 @@ def test_64mib_results_are_natives_bytes(dev):
     assert type(out) is bytes
     assert (status, out) == native.decode(want, len(data) - 1, BENCH)
     assert out == data[:-1]
+
+
+# -- a stream's short last RSI on the card ------------------------------------
+# The short last RSI (fewer samples than an RSI, its last block filled with
+# repeats of its last sample, encode.pad_tail) is a chunk of one RSI of nb
+# blocks to kernels 1 and 2 (encode.encode_tail); (id, config)
+SHORT_RSI_CASES = [
+    ("bench16", BENCH),
+    ("u24", Config(24, 64, 16, U24.flags)),
+    ("s13", Config(13, 32, 64, SGN_ | PP_ | MSB_)),
+    ("sar32bit", Config(32, 64, 4096, MSB_ | PP_ | AEC_PAD_RSI)),
+    ("res2", Config(2, 16, 64, AEC_RESTRICTED | PP_)),
+    ("res1-pad", Config(1, 8, 16, AEC_RESTRICTED | AEC_PAD_RSI)),
+    ("sz-bs2", Config(16, 2, 128, AEC_NOT_ENFORCE | MSB_ | PP_)),
+    ("sz-bs4", Config(16, 4, 128, AEC_NOT_ENFORCE | MSB_ | PP_)),
+    ("sz-bs6", Config(32, 6, 128, AEC_NOT_ENFORCE | SGN_ | PP_)),
+    ("bs128", Config(16, 128, 128, AEC_NOT_ENFORCE | MSB_ | PP_)),
+    ("bs1024", Config(16, 1024, 16, AEC_NOT_ENFORCE | PP_)),
+    ("bs16384-u32", Config(32, 16384, 4, AEC_NOT_ENFORCE | MSB_ | PP_)),
+]
+SHORT_NB = {"1": lambda rsi: 1, "2": lambda rsi: 2,
+            "half": lambda rsi: rsi // 2, "rsi-1": lambda rsi: rsi - 1}
+
+
+def short_rsi_bytes(cfg, nb, seed):
+    """Stream bytes of a short RSI of nb blocks, its last block short of
+    0 to bs - 1 samples, every tests/gen.py kind in turn."""
+    rng = np.random.default_rng(seed)
+    n = nb * cfg.block_size - int(rng.integers(0, cfg.block_size))
+    per = -(-n // len(KINDS))
+    vals = np.concatenate([gen_values(rng, per, cfg.bits_per_sample,
+                                      cfg.signed, kind)
+                           for kind in KINDS])[:n]
+    return np.frombuffer(pack_samples(vals, cfg.bits_per_sample, cfg.flags),
+                         np.uint8)
+
+
+@pytest.mark.parametrize("at", list(SHORT_NB))
+@pytest.mark.parametrize("cfg", [c[1] for c in SHORT_RSI_CASES],
+                         ids=[c[0] for c in SHORT_RSI_CASES])
+def test_short_rsi_kernels_match_plain(dev, cfg, at):
+    """Kernel 1 with nb < rsi (rsi = nb to the kernel: its zero-run
+    segments, its reference sample and AEC_PAD_RSI's pad end with the
+    short RSI) from k 0 and a k above 0, and kernel 2 on its windows at
+    bit cursors 0, 1 and 7, against their plain versions."""
+    from libaec_tpu_torch.encode import pad_tail
+
+    nb = SHORT_NB[at](cfg.rsi)
+    raw, got_nb = pad_tail(cfg, short_rsi_bytes(cfg, nb, nb + cfg.rsi))
+    assert got_nb == nb
+    raw = torch.from_numpy(raw)
+    for k in sorted({0, max(cfg.kmax, 0) // 2 + (cfg.kmax > 0)}):
+        k0 = torch.tensor([k], dtype=torch.int32)
+        want = encode_cuda.encode_fields_plain(cfg, raw, k0, nb=nb)
+        got = encode_cuda.encode_fields(cfg, raw.to(dev), k0.to(dev), nb=nb)
+        for g, w in zip(got, want):
+            assert torch.equal(g.cpu(), w), k
+        nwords = merge_cuda.word_count(cfg, nb, want[0].shape[1] - 1)
+        for bit0 in (0, 1, 7):
+            hold_merge(dev, want[0], want[1], bit0, nwords)
+
+
+TAIL_SAMPLES = {"one-sample": lambda cfg: 1,
+                "block-less-a-sample": lambda cfg: cfg.block_size - 1,
+                "rsi-less-a-block": lambda cfg: (cfg.rsi - 1)
+                * cfg.block_size}
+
+
+def stream_on(dev, cfg, data, pieces):
+    """The port's stream on `dev`: data in `pieces` pieces, then flushed."""
+    from libaec_tpu_torch import AEC_FLUSH, AEC_NO_FLUSH, stream
+
+    s = stream.AecStream(cfg.bits_per_sample, cfg.block_size, cfg.rsi,
+                         cfg.flags, device=dev)
+    stream.aec_encode_init(s)
+    cuts = np.linspace(0, len(data), pieces + 1).astype(int)
+    for a, b in zip(cuts[:-1], cuts[1:]):
+        s.next_in, s.avail_in = data[a:b], None
+        stream.aec_encode(s, AEC_NO_FLUSH)
+    s.next_in, s.avail_in = b"", None
+    stream.aec_encode(s, AEC_FLUSH)
+    assert stream.aec_encode_end(s) == 0
+    return bytes(s.next_out)
+
+
+@pytest.mark.parametrize("tail", list(TAIL_SAMPLES))
+@pytest.mark.parametrize("cfg", [BENCH, Config(24, 64, 16, U24.flags),
+                                 Config(32, 64, 16, MSB_ | PP_ | AEC_PAD_RSI),
+                                 Config(16, 1024, 16, AEC_NOT_ENFORCE | PP_)],
+                         ids=["bench16", "u24", "pad32", "bs1024"])
+def test_entry_points_with_tails_match_native(dev, cfg, tail):
+    """encode_buffer, encode_buffer_status and the stream on the card, five
+    RSIs and a tail: native.encode's stream, and encode_buffer launches
+    kernels 1 and 2 once for each chunk of two RSIs and once for the
+    tail."""
+    data = chunk(cfg, 5, cfg.bits_per_sample + 9).numpy().tobytes()
+    data += data[cfg.rsi_len_bytes:][:TAIL_SAMPLES[tail](cfg)
+                                     * cfg.bytes_per_sample] + b"\x01"
+    want = native.encode(data, cfg)[1]
+    before = encode_cuda.launches, merge_cuda.launches
+    assert libaec_tpu_torch.encode_buffer(
+        data, cfg, device=dev, force_device=True, rsis_per_chunk=2) == want
+    assert (encode_cuda.launches - before[0],
+            merge_cuda.launches - before[1]) == (4, 4)
+    assert libaec_tpu_torch.encode_buffer_status(
+        data, cfg, len(want), device=dev, force_device=True,
+        rsis_per_chunk=2) == (0, want)
+    assert stream_on(dev, cfg, data, 3) == want
+
+
+def test_encode_entry_points_run_no_plain_version(dev, monkeypatch,
+                                                  tmp_path):
+    """With kernel 1's and kernel 2's plain versions made to raise, every
+    encode entry point runs to its end on the card over a buffer that ends
+    in a short last RSI: encode_buffer, encode_buffer_status, the stream,
+    the SZ compress (which pads every scanline to a whole RSI) and the
+    CLI's encode."""
+    from chip_smoke import c_sz_compress, sz_chunks
+
+    from libaec_tpu_torch import cli, szip
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("a plain version ran with a card present")
+
+    monkeypatch.setattr(encode_cuda, "encode_fields_plain", refuse)
+    monkeypatch.setattr(bitpack, "merge_windows", refuse)
+    data = _bench_data(9, 8)
+    want = native.encode(data, BENCH)[1]
+    assert libaec_tpu_torch.encode_buffer(
+        data, BENCH, device=dev, force_device=True, rsis_per_chunk=4) == want
+    assert libaec_tpu_torch.encode_buffer_status(
+        data, BENCH, len(want), device=dev, force_device=True) == (0, want)
+    assert stream_on(dev, BENCH, data, 4) == want
+
+    param = szip.SZCom(szip.SZ_MSB_OPTION_MASK | szip.SZ_NN_OPTION_MASK, 16,
+                       32, 1000)
+    sz = sz_chunks(np.random.default_rng(9), 1, 16, True)[0][:300_000]
+    assert szip.sz_buffto_buff_compress(sz, param, device=dev,
+                                        force_device=True) \
+        == c_sz_compress(sz, param)
+
+    monkeypatch.setenv("LIBAEC_TPU_ENCODE", "jax")
+    src, rz = tmp_path / "in.dat", tmp_path / "out.rz"
+    src.write_bytes(data)
+    assert cli.main(["-n", "16", "-j", "64", "-r", "256", "-m", str(src),
+                     str(rz)]) == 0
+    assert rz.read_bytes() == want
