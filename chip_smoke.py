@@ -16,9 +16,12 @@ config) and 24-bit samples stored in 3 bytes,
 libaec_tpu_torch.encode_buffer over two 256 MiB buffers, held against the
 native encoder and a native decode round trip, and
 libaec_tpu_torch.decode_buffer_status over the two streams it made, held
-against the input and the native decoder; the 16-bit streams once more on
-the one-kernel route (fused=True); and libaec_tpu_torch.decode_buffers
-over 256 streams of 1 MiB on both routes.  Then the surfaces users call,
+against the input and the native decoder, with one line a route of the
+walk, fill, store and touch ms of each stream's traced call and the
+pipeline's thread counts (`slice decode pipeline`); the 16-bit streams
+once more on the one-kernel route (fused=True); and
+libaec_tpu_torch.decode_buffers over 256 streams of 1 MiB on both
+routes.  Then the surfaces users call,
 each phase holding its launch counts to the kernels of its route: the SZ
 layer (libaec_tpu_torch.szip) on an HDF5-shaped dataset of 128 chunks of
 1 MiB, compressed chunk by chunk and as one 64 MiB buffer on the card,
@@ -772,10 +775,21 @@ def run_decode_slice(results, cfg, device, fused=False):
               f"status={got[0]} "
               f"bytes={len(got[1])} identical_to_native=True")
 
+    from libaec_tpu_torch import decode as decode_mod
+
+    paces = []
     for kind, body, comp, _, _, _ in runs:
         with decode_timers() as spent:
             host_breakdown(f"decode {tag} {kind}",
                            lambda: decode(comp, len(body)), spent)
+        paces.append(f"{kind} MiB={len(body) / 2**20:.0f} " + " ".join(
+            f"{name}_ms={spent[step] * 1e3:.3f}" for name, step in (
+                ("walk", "scan_main"), ("fill", "fill_fill"),
+                ("store", "store_fetch"), ("touch", "touch_touch"))))
+    # which host step sets the pipeline's pace (the walk, ideally)
+    print(f"slice decode pipeline [{tag}] fill_threads="
+          f"{decode_mod.FILL_THREADS} store_threads="
+          f"{decode_mod.STORE_THREADS} | " + " | ".join(paces))
     profile_call(f"decode_buffer_status {tag}",
                  lambda: decode(runs[0][2], len(runs[0][1])))
     return launches
@@ -2181,8 +2195,8 @@ def encode_timers():
 def decode_timers():
     """Seconds the decode path spends in each host step, summed per step,
     as encode_timers: (main) the calling thread, (fill) the fill worker,
-    (fetch) the FIFO fetch thread, (pool) the scan and fill pools of
-    decode_buffers, summed over their threads."""
+    (fetch) the FIFO fetch thread, (touch) the touch worker, (pool) the
+    scan and fill pools of decode_buffers, summed over their threads."""
     from libaec_tpu_torch import decode as mod
 
     spent = defaultdict(float)
@@ -2191,10 +2205,11 @@ def decode_timers():
              "stage_chunk": "h2d_main", "decode_chunk": "dispatch_main",
              "fetch_chunk": "d2h_fetch", "store_part": "store_fetch",
              "finish": "tail_finish", "scan_stream": "scan_pool",
-             "fill_part": "fill_pool"}
-    saved = {name: getattr(mod, name) for name in steps}
-    for name, step in steps.items():
-        setattr(mod, name, wrap(step, saved[name]))
+             "fill_part": "fill_pool", "touch_pages": "touch_touch"}
+    # a step the decode module lacks (an older tree's) is not timed
+    saved = {name: getattr(mod, name) for name in steps if hasattr(mod, name)}
+    for name, value in saved.items():
+        setattr(mod, name, wrap(steps[name], value))
     try:
         yield spent
     finally:

@@ -3,15 +3,20 @@
 Twin of libaec_tpu/decode.py's device routes: one stream
 (decode_buffer_tpu, decode.py:232) and many (decode_buffers_tpu,
 decode.py:399).  Phase 1 runs on the host in the port's native code
-(native/): the records-only structural walk (native.scan_blocks), the
-window bucketing and fill (native.fill_windows) on one worker, writing
-into pinned host buffers.  Phase 2 copies each chunk to the device and
-runs kernel 3 (kernels/decode_cuda.py) and kernel 4, or for 3-byte samples
-kernel 5 and kernel 4's byte layout (kernels/unpredict_cuda.py), or, opted
-into with `fused`, kernel 6 alone (kernels/decode_fused_cuda.py); at most
-4 chunks in flight; one FIFO fetch thread copies the output back.  The
-serial native tail (native.decode_tail) finishes what the scan could not
-validate, which gives the reference's status and truncation semantics.
+(native/): the records-only structural walk (native.scan_blocks) on the
+calling thread; the window bucketing and fill (native.fill_windows, in
+FILL_THREADS pieces of rows) on a fill worker, writing into pinned host
+buffers.  Phase 2 copies each chunk to the device and runs kernel 3
+(kernels/decode_cuda.py) and kernel 4, or for 3-byte samples kernel 5 and
+kernel 4's byte layout (kernels/unpredict_cuda.py), or, opted into with
+`fused`, kernel 6 alone (kernels/decode_fused_cuda.py); at most 4 chunks
+in flight; one FIFO fetch worker copies the output back and stores it
+into the result in STORE_THREADS pieces, after a touch worker has
+written into each of the result's new pages.  The workers, the helpers
+that take the pieces and the chunk slots of one stream's decode live as
+long as the process (_pipeline_pools, _ChunkPipe).  The serial native
+tail (native.decode_tail) finishes what the scan could not validate,
+which gives the reference's status and truncation semantics.
 
 Unlike the JAX route, chunks are not padded to power-of-two shapes: that
 bounded XLA recompiles, and the kernels take their sizes at run time.  For
@@ -20,8 +25,9 @@ block and per RSI, so whole-RSI records of consecutive streams
 concatenate without changing any output byte.
 """
 import os
+import threading
 from collections import deque
-from concurrent.futures import ThreadPoolExecutor
+from concurrent.futures import ThreadPoolExecutor, wait
 from contextlib import nullcontext
 
 import numpy as np
@@ -39,6 +45,68 @@ MAX_INFLIGHT = 4  # chunks queued on the device before the oldest is fetched
 # Outputs of at least this size decode on the device by default; below it
 # the per-call cost outweighs the device (libaec_tpu/decode.py:34).
 DEVICE_DECODE_MIN_BYTES = 16 << 20
+
+
+def pipeline_threads(cores=None):
+    """(fill, store) pieces of one stream's decode on a host of `cores`
+    cores (default os.cpu_count()).  The walk holds the calling thread
+    and the first touch of the result's pages the touch worker; the fill
+    cuts each chunk's windows into `fill` pieces of rows and the store
+    each chunk's bytes into `store` pieces, done at once by their worker
+    and the pipeline's helpers.  On the 8 cores of the H100 host, 3 and
+    4 decoded cell 1 faster than 1 or 2 pieces of fill and 2 or 3 of
+    store (PERF.md section 6); the two take up to the cores the
+    walk leaves."""
+    cores = cores or os.cpu_count() or 1
+    fill = max(1, min(3, (cores - 2) // 2))
+    store = max(1, min(4, cores - 1 - fill))
+    return fill, store
+
+
+FILL_THREADS, STORE_THREADS = pipeline_threads()
+PAGE = 4096
+_POOLS = {}  # process id -> _Pools
+_SLOTS = {}  # (process id, records, window words, pinned) -> idle slots
+_LOCK = threading.Lock()
+
+
+class _Pools:
+    """The threads of one stream's decode, made at a process's first such
+    decode and kept for every later one (a forked child makes its own),
+    so that no call pays for new threads: the fill worker, the FIFO fetch
+    worker, the touch worker and the helpers that take the fill's and
+    the store's other pieces.  Calls from several threads share them;
+    each call waits for its own jobs only."""
+
+    def __init__(self):
+        cores = os.cpu_count() or 1
+        self.fill = ThreadPoolExecutor(1, "aec-decode-fill")
+        self.fetch = ThreadPoolExecutor(1, "aec-decode-fetch")
+        self.touch = ThreadPoolExecutor(1, "aec-decode-touch")
+        self.helpers = ThreadPoolExecutor(cores, "aec-decode-help")
+
+
+def _pipeline_pools():
+    with _LOCK:
+        pools = _POOLS.get(os.getpid())
+        if pools is None:
+            pools = _POOLS[os.getpid()] = _Pools()
+        return pools
+
+
+def _in_pieces(fn, n, pieces, align=1):
+    """fn(slice) over `pieces` pieces of range(n), each a multiple of
+    align long but the last, at once: the first on this thread, the
+    others on the pipeline's helpers."""
+    step = max(1, -(-n // (pieces * align))) * align
+    cuts = [slice(a, a + step) for a in range(0, n, step)]
+    helpers = [_pipeline_pools().helpers.submit(fn, c) for c in cuts[1:]]
+    try:
+        if cuts:
+            fn(cuts[0])
+    finally:
+        for f in helpers:
+            f.result()
 
 
 def scan_record_arrays(recs):
@@ -66,8 +134,10 @@ class _Slot:
     one pinned tensor, and the windows are a pinned tensor with room for
     nrec worst-case windows, viewed at the chunk's bucket width.  The scan
     and the fill write into numpy views of them, so nothing is staged
-    twice.  `copied` is an event recorded after the chunk's H2D copies:
-    the slot is rewritten only once it has completed."""
+    twice; the bucket width is worked out in `scratch`.  `copied` is an
+    event recorded after the chunk's H2D copies: the slot is rewritten
+    only once it has completed.  Slots outlive a call (_ChunkPipe keeps
+    them for the next), so their pages are touched once a process."""
 
     wf = 0      # the scan runs records-only
     win = None
@@ -81,6 +151,7 @@ class _Slot:
          self.ref_sample) = self.rec.numpy().view(np.uint32)
         self.windows = torch.empty(nrec * bitunpack.window_words(cfg),
                                    dtype=torch.int32, pin_memory=pin)
+        self.scratch = bitunpack.BucketScratch(nrec)
         self.copied = None
 
     def fits(self, nrec, wf):
@@ -101,26 +172,40 @@ def scan_chunk(data, ask, cfg, start_bit, slot):
     return res
 
 
-def _fill_rows(data, slot, recs, wf, row):
+def _fill_rows(data, slot, recs, wf, row, threads=1):
     """Windows at width wf and the two derived records (fs_bit, lsb_rel,
     as scan_record_arrays) of scanned records, into the slot's rows from
-    `row` on."""
-    rows = slice(row, row + len(recs["fs_off"]))
-    _native.fill_windows(data, recs["fs_off"], recs["meta"], wf, 1,
-                         slot.window_view(wf)[rows])
-    np.bitwise_and(recs["fs_off"], np.uint64(31), out=slot.fs_bit[rows],
+    `row` on; the windows in `threads` pieces of rows at once
+    (_in_pieces: on threads of the process, not threads made a call)."""
+    n = len(recs["fs_off"])
+    rows = slice(row, row + n)
+    fs_off, meta, win = recs["fs_off"], recs["meta"], \
+        slot.window_view(wf)[rows]
+    _in_pieces(lambda p: _native.fill_windows(data, fs_off[p], meta[p], wf,
+                                              1, win[p]), n, threads)
+    np.bitwise_and(fs_off, np.uint64(31), out=slot.fs_bit[rows],
                    casting="unsafe")
-    np.subtract(recs["lsb_off"], recs["fs_off"], out=slot.lsb_rel[rows],
+    np.subtract(recs["lsb_off"], fs_off, out=slot.lsb_rel[rows],
                 casting="unsafe")
     return rows
 
 
 def fill_chunk(data, cfg, slot, recs, tail_bit):
     """Bucket width, windows and derived records of one chunk scanned into
-    the slot (the fill worker's job).  Returns the width."""
-    wf = bitunpack.bucket_wf(cfg, recs, tail_bit)
-    _fill_rows(data, slot, recs, wf, 0)
+    the slot (the fill worker's job; the windows in FILL_THREADS
+    pieces).  Returns the width."""
+    wf = bitunpack.bucket_wf(cfg, recs, tail_bit, slot.scratch)
+    _fill_rows(data, slot, recs, wf, 0, FILL_THREADS)
     return wf
+
+
+def touch_pages(view):
+    """One byte of each page of view (uint8, a stretch of the result)
+    written: the pages' first-touch faults taken here, on the touch
+    worker, ahead of the store (a result's pages are new in every call;
+    on the H100 host they cost more than the store's copy, PERF.md
+    section 6)."""
+    view[::PAGE] = 0
 
 
 def stage_chunk(slot, n, wf, device):
@@ -183,15 +268,24 @@ def fetch_chunk(chunk_out, staging):
 
 def store_part(flat, dst):
     """Fetched bytes into dst, a view of the result's bytes (HostBytes),
-    or returned as bytes when dst is None (the part_sink route).  Tensors
-    copy with torch, split over its threads (one stream's chunks: the
-    host's other threads are the walk and one fill worker); numpy arrays
-    on this thread alone (decode_buffers, whose pools keep every core
-    busy: there torch's threads slowed a batch of 1 MiB streams, PERF.md
-    section 6)."""
+    or returned as bytes when dst is None (the part_sink route).  A
+    tensor (one stream's chunk) is cut into STORE_THREADS pieces of
+    whole pages, copied at once (_in_pieces) by numpy, which releases
+    the interpreter lock.  Not by torch: its copy runs in an OpenMP team
+    of as many threads as cores, whose workers spin for milliseconds
+    after each copy unless the process already holds another team, so
+    the walk and the fill lost cores to them in a process that had run
+    no torch CPU op on its main thread (ROADMAP C.17).  numpy arrays
+    (decode_buffers, whose pools keep every core busy) are copied on
+    this thread alone."""
     if dst is None:
         return flat.numpy().tobytes()
-    dst[:] = flat
+    if isinstance(dst, np.ndarray):
+        dst[:] = flat
+        return None
+    src, out = flat.numpy(), dst.numpy()
+    _in_pieces(lambda p: np.copyto(out[p], src[p]), len(out), STORE_THREADS,
+               PAGE)
     return None
 
 
@@ -222,7 +316,10 @@ class _ChunkPipe:
     """What both device routes share: the pool of slots, the chunks in
     flight on the device (at most MAX_INFLIGHT) and the FIFO fetch of
     their outputs.  deliver(flat, tag) receives each chunk's bytes on the
-    host, in order, on the fetch worker, with the tag given at dispatch."""
+    host, in order, on the fetch worker, with the tag given at dispatch.
+    settle() waits for every job submitted through it, whatever became of
+    the others, so a call that raises leaves no job writing into its
+    buffers, and keeps the call's slots for the process's next call."""
 
     def __init__(self, cfg, per_chunk, device, fused, fetch_pool, deliver):
         self.cfg, self.device, self.fused = cfg, device, fused
@@ -233,13 +330,22 @@ class _ChunkPipe:
         self.staging = torch.empty(
             per_chunk * cfg.rsi_len_bytes, dtype=torch.uint8,
             pin_memory=True) if self.cuda else None
+        self.key = (os.getpid(), self.nrec, bitunpack.window_words(cfg),
+                    self.cuda)
+        self.slots = []       # every slot this call holds
         self.free = deque()   # slots whose chunk has been dispatched
         self.pending = []     # (chunk output, done event, tag)
-        self.fetch_futs = []
+        self.fetch_futs, self.fill_futs, self.touch_futs = [], [], []
 
     def take_slot(self):
         if not self.free:
-            return _Slot(self.cfg, self.nrec, self.cuda)
+            with _LOCK:
+                kept = _SLOTS.get(self.key)
+                slot = kept.pop() if kept else None
+            if slot is None:
+                slot = _Slot(self.cfg, self.nrec, self.cuda)
+            self.slots.append(slot)
+            return slot
         slot = self.free.popleft()
         if slot.copied is not None:
             slot.copied.synchronize()
@@ -262,6 +368,38 @@ class _ChunkPipe:
     def submit(self, fn, *args):
         """fn(*args) on the fetch worker, in turn with the fetches."""
         self.fetch_futs.append(self.fetch_pool.submit(fn, *args))
+
+    def fill(self, pool, fn, *args):
+        """fn(*args) on a fill worker of `pool`: its future."""
+        fut = pool.submit(fn, *args)
+        self.fill_futs.append(fut)
+        return fut
+
+    def touch(self, view, step):
+        """touch_pages over view (uint8) in stretches of step bytes, in
+        order, on the touch worker."""
+        pool = _pipeline_pools().touch
+        self.touch_step = step
+        self.touch_futs = [pool.submit(touch_pages, view[a:a + step])
+                           for a in range(0, len(view), step)]
+
+    def touched(self, end):
+        """Waits until touch() has done every page before byte `end`: a
+        stretch is stored only after its touch, which writes into it."""
+        if self.touch_futs and end > 0:
+            self.touch_futs[min((end - 1) // self.touch_step,
+                                len(self.touch_futs) - 1)].result()
+
+    def settle(self):
+        wait(self.fill_futs + self.fetch_futs + self.touch_futs)
+        for slot in self.slots:
+            if slot.copied is not None:
+                slot.copied.synchronize()
+        with _LOCK:
+            for key in [k for k in _SLOTS if k != self.key]:
+                del _SLOTS[key]  # the slots of another chunk geometry
+            _SLOTS.setdefault(self.key, []).extend(self.slots)
+        self.slots = []
 
     def _fetch(self, chunk_out, done, tag):
         if done is not None:
@@ -307,27 +445,32 @@ def decode_buffer_device(data, cfg: Config, out_size, device,
     out = HostBytes(out_size) if part_sink is None and want_rsis else None
 
     def deliver(flat, off):
-        dst = None if out is None else out.view[off:off + flat.numel()]
-        part = store_part(flat, dst)
-        if part is not None:
-            part_sink(part)
+        if out is None:
+            part_sink(store_part(flat, None))
+            return
+        pipe.touched(off + flat.numel())
+        store_part(flat, out.view[off:off + flat.numel()])
 
     n_rsis = tail_bit = 0
     staged = None  # (fill future, slot, RSIs, output offset)
-    # the walk of chunk i+1 runs while chunk i's fill runs on its worker
-    # and earlier chunks decode on the device (decode.py:299-371)
-    with ThreadPoolExecutor(1) as fill_pool, \
-            ThreadPoolExecutor(1) as fetch_pool:
-        pipe = _ChunkPipe(cfg, min(chunk_rsis, max(want_rsis, 1)), device,
-                          fused_wanted(fused), fetch_pool, deliver)
+    pools = _pipeline_pools()
+    pipe = _ChunkPipe(cfg, min(chunk_rsis, max(want_rsis, 1)), device,
+                      fused_wanted(fused), pools.fetch, deliver)
+    # the walk of chunk i+1 runs while chunk i's fill runs on its worker,
+    # earlier chunks decode on the device and the result's pages are
+    # touched ahead of their store (decode.py:299-371)
+    try:
+        if out is not None:
+            pipe.touch(out.view.numpy()[:want_rsis * rsi_bytes],
+                       chunk_rsis * rsi_bytes)
         while n_rsis < want_rsis:
             ask = min(chunk_rsis, want_rsis - n_rsis)
             slot = pipe.take_slot()
             recs, cnt, tail_bit = scan_chunk(data, ask, cfg, tail_bit, slot)
             if cnt == 0:
                 break
-            fut = fill_pool.submit(fill_chunk, data, cfg, slot, recs,
-                                   tail_bit)
+            fut = pipe.fill(pools.fill, fill_chunk, data, cfg, slot, recs,
+                            tail_bit)
             if staged is not None:
                 pipe.dispatch(staged[1], staged[2], staged[0].result(),
                               staged[3])
@@ -338,6 +481,8 @@ def decode_buffer_device(data, cfg: Config, out_size, device,
         if staged is not None:
             pipe.dispatch(staged[1], staged[2], staged[0].result(), staged[3])
         pipe.drain()
+    finally:
+        pipe.settle()
 
     status, tail, result = finish(data, cfg, tail_bit, n_rsis * rsi_bytes,
                                   out_size, out)

@@ -232,17 +232,39 @@ def decode_blocks_region(cfg, win, fs_bit, lsb_rel, meta, ref_sample):
     return to_bits(compose_blocks(cfg, val, fs, meta, ref_sample))
 
 
-def bucket_wf(cfg, recs, tail_bit):
+class BucketScratch:
+    """Arrays bucket_wf works in, for up to n records: a caller that
+    buckets chunk after chunk (decode._Slot) keeps one, so that a chunk
+    makes no arrays of its own but numpy's index of its non-zero
+    payloads."""
+
+    def __init__(self, n):
+        self.kind = np.empty(n, np.uint32)
+        self.nonzero = np.empty(n, np.bool_)
+        self.nz = np.empty(n, np.uint64)
+        self.span = np.empty(n, np.uint64)
+
+
+def bucket_wf(cfg, recs, tail_bit, scratch=None):
     """Twin of _bucket_wf (libaec_tpu/decode.py:181-199): the smallest
     width of WF_BUCKETS that covers every payload span of the chunk, or
-    the worst-case window."""
+    the worst-case window.  A span runs from a non-zero payload to the
+    next one (the last to tail_bit), in u64 as the twin's; the steps
+    write into `scratch` (a BucketScratch; a new one when None)."""
     wf_max = window_words(cfg)
     fs_off = recs["fs_off"]
-    nz = fs_off[(recs["meta"] & np.uint32(3)) != 0]
-    if len(nz) == 0:
+    n = len(fs_off)
+    s = scratch if scratch is not None else BucketScratch(n)
+    kind = np.bitwise_and(recs["meta"], np.uint32(3), out=s.kind[:n])
+    nonzero = np.not_equal(kind, 0, out=s.nonzero[:n])
+    cnt = int(np.count_nonzero(nonzero))
+    if cnt == 0:
         return min(WF_BUCKETS[0], wf_max)
-    ends = np.append(nz[1:], np.uint64(tail_bit))
-    span = int((ends - nz).max())
+    nz = np.compress(nonzero, fs_off, out=s.nz[:cnt])
+    span = (tail_bit - int(nz[-1])) % (1 << 64)
+    if cnt > 1:
+        span = max(span, int(np.subtract(nz[1:], nz[:-1],
+                                         out=s.span[:cnt - 1]).max()))
     need = (31 + span + 31) // 32 + 1
     for b in WF_BUCKETS:
         if need <= b <= wf_max:
